@@ -6,3 +6,8 @@ import sys
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
