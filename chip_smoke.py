@@ -135,7 +135,10 @@ def kernel_cases(torch, ops, ref, dev):
             plain=lambda a=args: ref.fingerprint_bank(*a),
             library=None,
             nbytes=4 * (P * B * W + P * W * 2 + P * 4 + P * B * 2),
-            ops=rows * (W * (2 * CLMUL32_OPS + 3) + 7 * CLMUL32_OPS),
+            # Per word two 32x32 products and 4 XORs into the limbs; the
+            # Barrett step three products (its operands are one limb wide)
+            # and 4 XORs.
+            ops=rows * (W * (2 * CLMUL32_OPS + 4) + 3 * CLMUL32_OPS + 4),
         ))
 
     # expand_bank: the same bucket's frontier tile, then a ragged edge.
@@ -189,7 +192,26 @@ def kernel_cases(torch, ops, ref, dev):
     return cases
 
 
+def check_expand_limit(torch, ops, dev) -> None:
+    """``expand_bank`` stages each table in shared memory: a table larger
+    than a block may hold must raise ValueError, without a launch."""
+    n = 4096                          # 4096 x 20 x 4 B = 320 KB
+    before = ops.launches["expand_bank"]
+    try:
+        ops.expand_bank(torch.zeros((1, n, K), dtype=torch.int32, device=dev),
+                        torch.zeros((1, 1, n), dtype=torch.int32, device=dev))
+    except ValueError as e:
+        print(f"[kernel] expand_bank, {n}-state table: ValueError ({e})",
+              flush=True)
+    else:
+        raise RuntimeError("check failed: expand_bank accepted a table "
+                           "larger than a block's shared memory")
+    check(ops.launches["expand_bank"] == before,
+          "expand_bank launched on a table it cannot stage")
+
+
 def run_kernel_checks(torch, ops, ref, dev) -> list:
+    check_expand_limit(torch, ops, dev)
     results = []
     for c in kernel_cases(torch, ops, ref, dev):
         got = c["run"]()

@@ -23,7 +23,6 @@ import torch
 
 MODES = ("auto", "sfa", "enumeration")
 BACKENDS = ("reference", "kernel")
-CONSTRUCTION_METHODS = ("auto", "batched")
 CONSTRUCTION_FP_BACKENDS = ("auto", "kernel", "plain")
 CONSTRUCTION_EXPAND_BACKENDS = ("auto", "kernel", "plain")
 CONSTRUCTION_BUCKETINGS = ("auto", "size", "off")
@@ -68,8 +67,8 @@ class ConstructionPolicy:
     """How ``Scanner.compile`` builds the SFAs its plan needs (one
     :func:`~..construction.construct_bank` call for every pattern).
 
-    ``method``: ``"batched"`` (``"auto"`` resolves to it). ``cache``:
-    ``"off"`` — the content-addressed construction cache is a later slice.
+    ``cache``: ``"off"`` — the content-addressed construction cache is a
+    later slice.
     ``tile`` / ``max_retries``: frontier states per pattern per round, and
     the per-pattern polynomial retry budget. ``fingerprint_backend`` /
     ``expand_backend``: ``"kernel"``, ``"plain"`` or ``"auto"`` (kernel on a
@@ -77,7 +76,6 @@ class ConstructionPolicy:
     the shape schedule's bucket shrink factor.
     """
 
-    method: str = "auto"
     tile: int = 128
     cache: Any = "off"
     max_retries: int = 4
@@ -88,7 +86,6 @@ class ConstructionPolicy:
 
     def validate(self) -> "ConstructionPolicy":
         checks = (
-            ("method", self.method, CONSTRUCTION_METHODS),
             ("cache", self.cache, CONSTRUCTION_CACHES),
             ("fingerprint_backend", self.fingerprint_backend,
              CONSTRUCTION_FP_BACKENDS),

@@ -162,7 +162,6 @@ def _resolve_sfas(ids, dfas, plan: ScanPlan, device: torch.device):
         max_states=budget,
         tile=policy.tile,
         max_retries=policy.max_retries,
-        method="batched",
         fingerprint_backend=policy.fingerprint_backend,
         expand_backend=policy.expand_backend,
         bucketing=policy.bucketing,

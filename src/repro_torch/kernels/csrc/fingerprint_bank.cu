@@ -12,8 +12,8 @@
 //
 // What bounds it on Hopper: integer ALU work. There is no carry-less multiply
 // instruction, so each 32x32 clmul is 32 bit-sliced mask/shift/XOR steps:
-// about 2*160 integer operations per word plus 7*160 for the Barrett step,
-// against 16 bytes read per word pair. Design: one thread per (pattern, row);
+// about 2*160 integer operations per word plus 3*160 for the Barrett step,
+// against 4 bytes read per word. Design: one thread per (pattern, row);
 // the W-word loop and all three accumulator limbs stay in registers; the
 // pattern's fold weights (at most 44*2 words at n_max = 87) and its four
 // Barrett limbs are staged once per block in shared memory, so the only
@@ -35,31 +35,6 @@ __device__ __forceinline__ void clmul32(uint32_t a, uint32_t b, uint32_t &hi,
     lo ^= (a << i) & mask;
     hi ^= ((a >> (31 - i)) >> 1) & mask;  // a >> (32 - i) without i == 0 UB
   }
-}
-
-// High 64 bits (limbs 3, 2) of a 64x64 carry-less product.
-__device__ __forceinline__ void clmul64_hi(uint32_t ah, uint32_t al,
-                                           uint32_t bh, uint32_t bl,
-                                           uint32_t &l3, uint32_t &l2) {
-  uint32_t ll_h, ll_l, lh_h, lh_l, hl_h, hl_l, hh_h, hh_l;
-  clmul32(al, bl, ll_h, ll_l);
-  clmul32(al, bh, lh_h, lh_l);
-  clmul32(ah, bl, hl_h, hl_l);
-  clmul32(ah, bh, hh_h, hh_l);
-  l2 = lh_h ^ hl_h ^ hh_l;
-  l3 = hh_h;
-}
-
-// Low 64 bits (limbs 1, 0) of a 64x64 carry-less product.
-__device__ __forceinline__ void clmul64_lo(uint32_t ah, uint32_t al,
-                                           uint32_t bh, uint32_t bl,
-                                           uint32_t &l1, uint32_t &l0) {
-  uint32_t ll_h, ll_l, lh_h, lh_l, hl_h, hl_l;
-  clmul32(al, bl, ll_h, ll_l);
-  clmul32(al, bh, lh_h, lh_l);
-  clmul32(ah, bl, hl_h, hl_l);
-  l0 = ll_l;
-  l1 = ll_h ^ lh_l ^ hl_l;
 }
 
 __global__ void fingerprint_bank_kernel(const uint32_t *__restrict__ words,
@@ -91,16 +66,21 @@ __global__ void fingerprint_bank_kernel(const uint32_t *__restrict__ words,
   }
 
   const uint32_t p_hi = smem[2 * W], p_lo = smem[2 * W + 1];
-  const uint32_t mu_hi = smem[2 * W + 2], mu_lo = smem[2 * W + 3];
-  // T1pre = floor(A / t^64) = (0, l2); T2pre = T1pre ^ hi64(T1pre * mu).
-  uint32_t m3, m2;
-  clmul64_hi(0u, l2, mu_hi, mu_lo, m3, m2);
-  // Low 64 bits of T2pre * p_low cancel A's low limbs down to the residue.
-  uint32_t q1, q0;
-  clmul64_lo(m3, l2 ^ m2, p_hi, p_lo, q1, q0);
+  const uint32_t mu_hi = smem[2 * W + 2];  // mu_lo: see the Barrett step
+  // Barrett step on the 96-bit fold A = (l2, l1, l0). T1 = floor(A / t^64)
+  // is the one limb l2, so T2 = T1 ^ hi64(T1 * mu) = l2 ^ hi32(l2 * mu_hi)
+  // (l2 * mu_lo reaches no higher than limb 1): one 32x32 product.
+  uint32_t h, l;
+  clmul32(l2, mu_hi, h, l);
+  const uint32_t t2 = l2 ^ h;
+  // The low 64 bits of T2 * p_low cancel A's low limbs down to the residue;
+  // T2 is one limb, so two products (of t2 * p_hi only the low limb counts).
+  uint32_t r1, r0;
+  clmul32(t2, p_lo, r1, r0);
+  clmul32(t2, p_hi, h, l);
   uint32_t *o = out + ((size_t)p * B + b) * 2;
-  o[0] = l1 ^ q1;
-  o[1] = l0 ^ q0;
+  o[0] = l1 ^ r1 ^ l;
+  o[1] = l0 ^ r0;
 }
 
 }  // namespace

@@ -17,8 +17,9 @@
 // Design: one thread per (pattern, chunk, start state), the L-step loop in a
 // register; consecutive threads take consecutive start states of one chunk,
 // so they read the same symbol (a broadcast) and write coalesced outputs.
-// When the table fits (kSmemTableMax, two blocks per SM), it is staged in
-// shared memory and a step costs a shared-memory load; a larger table (an
+// When the table fits (the caller passes use_smem; kernels/ops.py holds the
+// threshold, two blocks per SM), it is staged in shared memory and a step
+// costs a shared-memory load; a larger table (an
 // SFA delta of thousands of rows, 575 KB at 7,184 states) is read from
 // global memory, where it stays resident in the 50 MB L2. Blocks stride
 // over their pattern's work so each staged table serves many chunks.
@@ -28,7 +29,6 @@
 
 namespace {
 
-constexpr size_t kSmemTableMax = 96 * 1024;
 constexpr int kThreads = 256;
 
 template <bool kSmem>
@@ -62,7 +62,7 @@ __global__ void match_bank_kernel(const int32_t *__restrict__ tables,
 extern "C" int match_bank_chunks_launch(const void *tables, const void *chunks,
                                         void *out, int P, int n, int k,
                                         long long B, int L, int n_starts,
-                                        void *stream) {
+                                        int use_smem, void *stream) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -75,8 +75,8 @@ extern "C" int match_bank_chunks_launch(const void *tables, const void *chunks,
   if (blocks > per_pattern) blocks = per_pattern;
   dim3 grid((unsigned)blocks, (unsigned)P);
 
-  const size_t smem = (size_t)n * k * sizeof(int32_t);
-  if (smem <= kSmemTableMax) {
+  if (use_smem) {
+    const size_t smem = (size_t)n * k * sizeof(int32_t);
     if (smem > 48 * 1024) {
       e = cudaFuncSetAttribute(match_bank_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -6,6 +6,14 @@ Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, checks the launch error, and adds one to
 ``launches[<kernel>]`` for every kernel launch (plain-version calls are not
 counted).
+
+Index values are the caller's contract, as for the Pallas kernels: a
+frontier or table entry is a state id below ``n`` and a chunk symbol is
+below ``k``. The plain versions raise on a bad index; the kernels do not
+check (a check would cost a device synchronisation per launch). The port
+checks ids where they enter it: ``interop`` checks external arrays,
+``PatternBank`` is built from validated DFAs, and ``Scanner`` checks
+document symbols.
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ from . import build, ref
 launches = {name: 0 for name in build.KERNELS}
 
 #: Tables of at most this many bytes are staged in shared memory by
-#: ``match_bank_chunks`` (mirrors ``kSmemTableMax`` in the source).
+#: ``match_bank_chunks`` (two blocks per SM); larger ones are read from
+#: global memory. The wrapper passes its choice to the launch, so this is
+#: the one place the threshold lives.
 MATCH_SMEM_TABLE_MAX = 96 * 1024
 
 _VP = ctypes.c_void_p
@@ -31,7 +41,7 @@ _ARGTYPES = {
                     ctypes.c_int, _VP],
     "match_bank_chunks": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, _VP],
+                          ctypes.c_int, ctypes.c_int, _VP],
 }
 
 
@@ -115,6 +125,13 @@ def expand_bank(tables: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
                          f"tables {tuple(tables.shape)}")
     if dev.type == "cpu":
         return ref.expand_bank(tables, ft)
+    smem_max = torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin
+    if n * k * 4 > smem_max:
+        raise ValueError(
+            f"expand_bank: the kernel stages each ({n}, {k}) table in shared "
+            f"memory, {n * k * 4} bytes, more than the {smem_max} a block "
+            f"of {torch.cuda.get_device_name(dev)} may hold")
     T = ft.shape[1]
     out = torch.empty((B, T * k, n), dtype=torch.int32, device=dev)
     if B and T and n and k:
@@ -128,7 +145,9 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
                       n_starts: int | None = None) -> torch.Tensor:
     """Chunk walks of every table: (P, n, k) tables, (B, L) chunk symbols
     < k -> (P, B, n_starts), column ``q`` the state reached from ``q``.
-    ``n_starts`` defaults to ``n`` (whole transition functions)."""
+    ``n_starts`` defaults to ``n`` (whole transition functions). A table
+    of at most :data:`MATCH_SMEM_TABLE_MAX` bytes is read from shared
+    memory, a larger one from global memory."""
     dev = _check("match_bank_chunks", dict(tables=tables, chunks=chunks))
     if tables.dim() != 3 or chunks.dim() != 2:
         raise ValueError("match_bank_chunks: tables must be (P, n, k), "
@@ -145,5 +164,6 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
     if P and B:
         with torch.cuda.device(dev):
             _launch("match_bank_chunks", tables.data_ptr(), chunks.data_ptr(),
-                    out.data_ptr(), P, n, k, B, L, n_starts)
+                    out.data_ptr(), P, n, k, B, L, n_starts,
+                    int(n * k * 4 <= MATCH_SMEM_TABLE_MAX))
     return out

@@ -177,7 +177,6 @@ def test_plan_validation():
                 dict(mode="speculative"),
                 dict(device="tpu"), dict(sfa_state_budget=0),
                 dict(construction=ConstructionPolicy(cache="shared")),
-                dict(construction=ConstructionPolicy(method="loop")),
                 dict(chunking=ChunkPolicy(n_chunks=0))):
         with pytest.raises(ValueError):
             ScanPlan(**bad).validate()

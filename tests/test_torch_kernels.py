@@ -174,3 +174,14 @@ def test_match_bank_chunks_kernel_on_card(cuda, n, n_starts):
     t, c = torch.from_numpy(tables).to(cuda), torch.from_numpy(chunks).to(cuda)
     assert torch.equal(ops.match_bank_chunks(t, c, n_starts),
                        ref.match_bank_chunks(t, c, n_starts))
+
+
+@pytest.mark.cuda
+def test_expand_bank_kernel_rejects_a_table_it_cannot_stage(cuda):
+    n = 4096                     # a (4096, 20) table is 320 KB
+    before = ops.launches["expand_bank"]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.expand_bank(torch.zeros((1, n, 20), dtype=torch.int32,
+                                    device=cuda),
+                        torch.zeros((1, 1, n), dtype=torch.int32, device=cuda))
+    assert ops.launches["expand_bank"] == before
