@@ -7,14 +7,14 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, in order (any failure raises and exits non-zero):
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc (one process per source, in parallel) and print the build time;
 2. hold each kernel equal to its plain PyTorch version on the card, on
-   random inputs from a numpy seed: at the main path's shapes, at a ragged
-   edge, and for ``match_bank_chunks`` in both its shared-memory and its
-   global-memory branch at ``n_starts = n`` and ``n_starts = 1``; time each
-   kernel, its plain version, and (where one exists) one PyTorch call that
-   computes the same function;
+   random inputs from a numpy seed: at the largest shapes its path gives
+   it, at a ragged edge, and for the two chunk-matching kernels in both
+   their shared-memory and their global-memory branch; time each kernel,
+   its plain version, and (where one exists) one PyTorch call that computes
+   the same function;
 3. drive the main path at full size with every launch count at 0: the
    bundled 23-signature PROSITE bank through ``Scanner.compile`` under the
    default plan (SFA budget 512: SFA and enumeration patterns) and under
@@ -24,7 +24,16 @@ Phases, in order (any failure raises and exits non-zero):
 4. run the same construction and scan through the plain versions on the
    card, and through the NumPy ``reference`` backend on a 256-document
    sub-corpus, and require equal SFAs, hits and census;
-5. with ``--profile`` only: trace one compile and one scan per budget with
+5. drive the single-pattern path with every launch count at 0 again:
+   ``Scanner.compile`` of PS00010 alone (87-state DFA, SFA budget 20000:
+   ``method="auto"`` loops, the vectorized engine builds its 7,184 states on
+   the card) and its one-pattern bank construction, ``locate`` on a
+   2^22-residue sequence in 4,096 chunks, and ``census_windows`` (window
+   384, stride 48) and a 64-piece ``stream`` of the same sequence through
+   the budget-20000 bank scanner; then read the launch counts and require
+   equal results from the host construction, the plain versions, the
+   match oracle, the materialised windows and the whole-sequence mapping;
+6. with ``--profile`` only: trace one compile and one scan per budget with
    ``torch.profiler`` and print where the device time goes.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -49,6 +58,21 @@ DOCS, DOC_LEN = 65_536, 384          # 25.2 M residues
 N_CHUNKS = 8
 TILE, K = 128, 20                    # construction tile, amino-acid alphabet
 REF_DOCS = 256                       # sub-corpus of the NumPy reference
+
+# The single-pattern phase: one 87-state signature, one long sequence.
+SINGLE_ID, SINGLE_BUDGET = "PS00010", 20_000
+SEQ_LEN = 1 << 22                    # residues, uniform, numpy seed 0
+LOCATE_CHUNKS = 4096                 # chunks of 1,024 residues
+WINDOW, STRIDE = 384, 48             # census_windows: 87,376 windows
+STREAM_PIECES = 64
+ORACLE_LEN = 1 << 18                 # prefix held against the match oracle
+CLOSE_TILE = 4096                    # construct_sfa_vectorized's tile
+
+#: Kernels each path must launch.
+MAIN_KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks",
+                "compose")
+SINGLE_KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks",
+                  "compose", "match_chunks", "fingerprint")
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the int32 ALU
 #: rate: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, a quarter of the
@@ -161,6 +185,61 @@ def kernel_cases(torch, ops, ref, dev):
             ops=0,
         ))
 
+    # fingerprint: the single-pattern construction's largest tile (4,096
+    # frontier states x 20 symbols of PS00010's 87-state vectors: W = 44),
+    # then a ragged edge.
+    for label, (B, W) in (("main", (CLOSE_TILE * K, 44)),
+                          ("ragged", (1000, 7))):
+        args = (u32((B, W)), u32((W, 2)), u32((4,)))
+        cases.append(dict(
+            kernel="fingerprint", label=label, shape=f"words {B}x{W}",
+            run=lambda a=args: ops.fingerprint(*a),
+            plain=lambda a=args: ref.fingerprint(*a),
+            library=None,
+            nbytes=4 * (B * W + W * 2 + 4 + B * 2),
+            ops=B * (W * (2 * CLMUL32_OPS + 4) + 3 * CLMUL32_OPS + 4),
+        ))
+
+    # compose: census_windows' block fold on the budget-20000 bank (23
+    # patterns x 87,383 stride blocks, n = 87), then a ragged edge and the
+    # one-row-per-block branch (n >= 8192).
+    blocks = (SEQ_LEN - WINDOW) // STRIDE + WINDOW // STRIDE
+    for label, (B, n) in (("main", (23 * blocks, 87)),
+                          ("ragged", (1001, 13)),
+                          ("wide rows", (5, 9000))):
+        f, g = ids(n, (B, n)), ids(n, (B, n))
+        f64 = f.to(torch.int64)
+        cases.append(dict(
+            kernel="compose", label=label, shape=f"f, g {B}x{n}",
+            run=lambda a=(f, g): ops.compose(*a),
+            plain=lambda a=(f, g): ref.compose(*a),
+            # One PyTorch call computing the same function (a yardstick,
+            # never used by the port); its index must be int64.
+            library=lambda g=g, i=f64: torch.gather(g, 1, i),
+            nbytes=4 * 3 * B * n,
+            ops=0,
+        ))
+
+    # match_chunks: locate's first pass (PS00010's 87-state table, 4,096
+    # chunks of 1,024 residues, all 87 lanes) in shared memory, then the
+    # global branch and a ragged edge.
+    for label, (n, B, L) in (
+            ("locate (smem)", (87, LOCATE_CHUNKS, SEQ_LEN // LOCATE_CHUNKS)),
+            ("global branch", (7184, 300, 48)),
+            ("ragged (smem)", (13, 1001, 7))):
+        table, ch = ids(n, (n, K)), ids(K, (B, L))
+        smem = n * (K | 1) * 4 <= ops.MATCH_SMEM_TABLE_MAX
+        check(smem == ("smem" in label), f"branch of case {label!r}")
+        cases.append(dict(
+            kernel="match_chunks", label=label,
+            shape=f"table {n}x{K}, chunks {B}x{L}",
+            run=lambda a=(table, ch): ops.match_chunks(*a),
+            plain=lambda a=(table, ch): ref.match_chunks(*a),
+            library=None,
+            nbytes=4 * (n * K + B * L + B * n),
+            ops=2 * B * n * L,
+        ))
+
     # match_bank_chunks at the scan's shapes (65,536 docs x 8 chunks of 48
     # symbols): the SFA group (18 deltas of <= 272 rows, one lane) and the
     # enumeration group (5 tables of 87 states, all lanes) at budget 512 —
@@ -234,7 +313,7 @@ def run_kernel_checks(torch, ops, ref, dev) -> list:
         r = dict(kernel=c["kernel"], label=c["label"], shape=c["shape"],
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=lib_ms)
-        print(f"[kernel] {c['kernel']:18s} {c['label']:32s} {c['shape']:44s}"
+        print(f"[kernel] {c['kernel']:18s} {c['label']:32s} {c['shape']:40s}"
               f" equal  {ms:9.4f} ms  plain {plain_ms:9.3f} ms  bound "
               f"{b_ms:8.4f} ms ({b_by})"
               + (f"  library {lib_ms:8.4f} ms" if lib_ms is not None else ""),
@@ -299,6 +378,9 @@ def main_path(torch, ops, corpus) -> dict:
         print(f"[main] {name}: census {census.tolist()}", flush=True)
     launches = dict(ops.launches)
     print(f"[main] kernel launches in the main path: {launches}", flush=True)
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the main path")
 
     r512, r20k = runs["budget 512 (auto)"], runs["budget 20000 (sfa)"]
     check(r512["blown"] == 5 and r512["n_sfa"] == 18 and r512["n_enum"] == 5,
@@ -315,24 +397,27 @@ def main_path(torch, ops, corpus) -> dict:
           and tuple(g512["sfa"].deltas.shape) == (18, 272, K)
           and tuple(r20k["scanner"].groups[0].deltas.shape) == (23, 7184, K),
           "main-path table shapes match the kernel cases")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
     return dict(runs=runs, launches=launches)
 
 
 def plain_hits(torch, X, kref, scanner, corpus) -> np.ndarray:
-    """Hits of ``scanner``'s groups with the chunk walks through the plain
-    version of the kernel, on the card."""
+    """Hits of ``scanner``'s groups with the chunk walks and the chunk
+    folds through the plain versions of the kernels, on the card."""
+    from repro_torch.core.monoid import function_monoid
+
+    plain_fn = function_monoid(kref.compose)
     hits = np.zeros((scanner.n_patterns, corpus.shape[0]), dtype=bool)
     head = torch.as_tensor(corpus, device=scanner.device)
     for g in scanner.groups:
         if g.mode == "sfa":
             maps = X.bank_doc_mappings_sfa(g.deltas, g.sfa_maps, head,
                                            N_CHUNKS,
-                                           match_fn=kref.match_bank_chunks)
+                                           match_fn=kref.match_bank_chunks,
+                                           monoid=plain_fn)
         else:
             maps = X.bank_doc_mappings(g.tables, head, N_CHUNKS,
-                                       match_fn=kref.match_bank_chunks)
+                                       match_fn=kref.match_bank_chunks,
+                                       monoid=plain_fn)
         hits[g.indices] = X.hits_of_mappings(
             maps, g.accepting, g.starts).cpu().numpy()
     return hits
@@ -389,6 +474,128 @@ def twins(torch, corpus, main) -> dict:
               f"plain scan {t_pscan:.3f} s, hits equal; reference backend "
               f"{REF_DOCS} docs {t_ref:.3f} s, hits equal", flush=True)
     return out
+
+
+# --------------------------------------------------------------------------
+# Phase 5: the single-pattern path
+# --------------------------------------------------------------------------
+
+
+def sfa_fields_equal(a, b) -> bool:
+    return (np.array_equal(a.mappings, b.mappings)
+            and np.array_equal(a.delta, b.delta)
+            and np.array_equal(a.fingerprints, b.fingerprints))
+
+
+def single_path(torch, ops, kref, seq) -> dict:
+    from repro_torch.construction import construct_sfa, construct_sfa_sequential
+    from repro_torch.core.matching import match_ends_sequential
+    from repro_torch.core.monoid import function_monoid
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import ChunkPolicy, Scanner
+    from repro_torch.engine import executors as X
+
+    one = load_bank([SINGLE_ID])
+    dfa = one.dfa(0)
+    pieces = np.array_split(seq, STREAM_PIECES)
+    walls = {}
+
+    def run(name, fn):
+        out, walls[name] = timed(torch, fn)
+        return out
+
+    ops.reset_launches()
+    sc = run("compile", lambda: Scanner.compile(
+        one, mode="sfa", sfa_state_budget=SINGLE_BUDGET,
+        chunking=ChunkPolicy(n_chunks=LOCATE_CHUNKS)))
+    bank_sfa = run("construct_sfa engine=jax", lambda: construct_sfa(
+        dfa, engine="jax", max_states=SINGLE_BUDGET))
+    flags = run("locate", lambda: sc.locate(seq, SINGLE_ID))
+    bank = run("compile bank", lambda: Scanner.compile(
+        load_bank(), mode="sfa", sfa_state_budget=SINGLE_BUDGET))
+    windows = run("census_windows", lambda: bank.census_windows(
+        seq, WINDOW, STRIDE))
+    streamed = run("stream", lambda: bank.stream(pieces))
+    launches = dict(ops.launches)
+    rep = sc.construction_report
+    sfa_states = int(sc.groups[0].sfa_states[0])
+    n_win = (SEQ_LEN - WINDOW) // STRIDE + 1
+    print(f"[single] {SINGLE_ID} ({dfa.n_states} states): compile "
+          f"{walls['compile']:.3f} s via {rep.method}, {rep.rounds} rounds, "
+          f"{sfa_states} SFA states; one-pattern bank construction "
+          f"{walls['construct_sfa engine=jax']:.3f} s; locate of "
+          f"{SEQ_LEN} residues in {LOCATE_CHUNKS} chunks "
+          f"{walls['locate']:.3f} s ({int(flags.sum())} match ends)",
+          flush=True)
+    print(f"[single] budget-20000 bank: compile {walls['compile bank']:.3f} "
+          f"s; census_windows({WINDOW}, {STRIDE}) of {n_win} windows "
+          f"{walls['census_windows']:.3f} s (census "
+          f"{windows.counts.tolist()}); stream in {STREAM_PIECES} pieces "
+          f"{walls['stream']:.3f} s", flush=True)
+    print(f"[single] kernel launches in the single-pattern path: {launches}",
+          flush=True)
+    for name in SINGLE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the single-pattern path")
+
+    # Construction: the auto rule, the reference's round count, and equal
+    # SFAs from the one-pattern bank construction and the host engine.
+    check(rep.method == "loop" and rep.rounds == 21 and rep.blown == 0
+          and sfa_states == 7184,
+          f"{SINGLE_ID} compiles by the loop in 21 rounds to 7,184 states")
+    sfa = sc.groups[0]
+    check(np.array_equal(sfa.deltas[0].cpu().numpy(), bank_sfa.delta)
+          and np.array_equal(sfa.sfa_maps[0].cpu().numpy(),
+                             bank_sfa.mappings),
+          "the scanner's SFA equals the one-pattern bank construction's")
+    vec = construct_sfa(dfa, max_states=SINGLE_BUDGET)
+    host, t_host = timed(torch, lambda: construct_sfa_sequential(
+        dfa, max_states=SINGLE_BUDGET))
+    check(sfa_fields_equal(vec, bank_sfa) and sfa_fields_equal(vec, host),
+          "vectorized, one-pattern bank and host hash-chain SFAs are equal")
+    check(vec.stats.rounds == 21 and vec.stats.candidates == 7184 * K,
+          "vectorized engine: 21 rounds, 143,680 candidates")
+
+    # locate: the same path through the plain versions on the card, and the
+    # sequential match oracle on a prefix.
+    dev = sc.device
+    plain, t_plain_locate = timed(torch, lambda: X.find_matches_parallel(
+        torch.as_tensor(dfa.table, device=dev),
+        torch.as_tensor(dfa.accepting, device=dev),
+        torch.as_tensor(seq, device=dev), dfa.start, LOCATE_CHUNKS,
+        match_fn=kref.match_chunks,
+        monoid=function_monoid(kref.compose)).cpu().numpy())
+    check(flags.shape == (SEQ_LEN,) and np.array_equal(flags, plain),
+          "locate equals the plain-version path")
+    check(np.array_equal(flags[:ORACLE_LEN],
+                         match_ends_sequential(dfa, seq[:ORACLE_LEN])),
+          "locate equals match_ends_sequential on the prefix")
+
+    # census_windows: scan of the materialised windows.
+    starts = np.arange(n_win) * STRIDE
+    mat = seq[starts[:, None] + np.arange(WINDOW)]
+    naive, t_naive = timed(torch, lambda: bank.scan(mat))
+    check(windows.hits.shape == (23, n_win)
+          and np.array_equal(windows.hits, naive.hits),
+          "census_windows equals scan of the materialised windows")
+
+    # stream: the whole sequence's mapping and accept flags.
+    whole, t_whole = timed(torch, lambda: bank.mapping(seq))
+    check(streamed.n_symbols == SEQ_LEN
+          and np.array_equal(streamed.mapping, whole)
+          and np.array_equal(streamed.accepted, bank.accepts(seq)),
+          "stream equals mapping/accepts of the whole sequence")
+    print(f"[single] equal: SFAs (vectorized, one-pattern bank, host "
+          f"hash-chain {t_host:.1f} s); locate vs plain versions "
+          f"({t_plain_locate:.3f} s) and the oracle on {ORACLE_LEN} residues;"
+          f" census_windows vs scan of {n_win} windows ({t_naive:.3f} s); "
+          f"stream vs whole-sequence mapping ({t_whole:.3f} s)", flush=True)
+    return dict(walls=walls, launches=launches, rounds=rep.rounds,
+                method=rep.method, sfa_states=sfa_states,
+                host_construct_s=t_host, plain_locate_s=t_plain_locate,
+                materialised_scan_s=t_naive, whole_mapping_s=t_whole,
+                census=windows.counts.tolist(),
+                match_ends=int(flags.sum()))
 
 
 def profile_main_path(torch, corpus) -> dict:
@@ -481,24 +688,31 @@ def main(argv=None) -> int:
         0, K, (DOCS, DOC_LEN), dtype=np.int32)
     main_res = main_path(torch, ops, corpus)
     twin_res = twins(torch, corpus, main_res)
+    seq = np.random.default_rng(SEED).integers(0, K, SEQ_LEN, dtype=np.int32)
+    single_res = single_path(torch, ops, kref, seq)
     prof_res = profile_main_path(torch, corpus) if args.profile else None
 
+    csrc, tpu = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     sources = {
-        "fingerprint_bank": ("src/repro_torch/kernels/csrc/fingerprint_bank.cu",
-                             "src/repro/kernels/clmul.py:169"),
-        "expand_bank": ("src/repro_torch/kernels/csrc/expand_bank.cu",
-                        "src/repro/kernels/expand.py:64"),
-        "match_bank_chunks": (
-            "src/repro_torch/kernels/csrc/match_bank_chunks.cu",
-            "src/repro/kernels/match_scan.py:116"),
+        "fingerprint_bank": (f"{csrc}/fingerprint_bank.cu",
+                             f"{tpu}/clmul.py:169"),
+        "expand_bank": (f"{csrc}/expand_bank.cu", f"{tpu}/expand.py:64"),
+        "match_bank_chunks": (f"{csrc}/match_bank_chunks.cu",
+                              f"{tpu}/match_scan.py:116"),
+        "compose": (f"{csrc}/compose.cu", f"{tpu}/compose.py:43"),
+        "match_chunks": (f"{csrc}/match_chunks.cu",
+                         f"{tpu}/match_scan.py:72"),
+        "fingerprint": (f"{csrc}/fingerprint.cu", f"{tpu}/clmul.py:105"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         rows = [r for r in kernel_results if r["kernel"] == name]
-        head = rows[0]      # the main path's first (largest) shape
+        head = rows[0]      # the path's first (largest) shape
+        by_phase = {"main": main_res["launches"][name],
+                    "single": single_res["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=main_res["launches"][name],
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -514,6 +728,7 @@ def main(argv=None) -> int:
                          if k not in ("scanner", "hits")}
                   for name, r in main_res["runs"].items()},
             twins=twin_res,
+            single=single_res,
             profile=prof_res,
         )
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1,13 +1,28 @@
 """SFA construction in the port: the batched bank closure
-(:func:`construct_bank`) and its result types."""
+(:func:`construct_bank`), the single-pattern engines (:func:`construct_sfa`
+and friends) and their result types."""
 
 from .batched import (
     BUCKETINGS,
     EXPAND_BACKENDS,
     FINGERPRINT_BACKENDS,
+    METHODS,
     RoundSchedule,
     construct_bank,
+    resolve_method,
     round_schedule,
+)
+from .single import (
+    ENGINES,
+    construct_sfa,
+    construct_sfa_sequential,
+    construct_sfa_vectorized,
+)
+from .stores import (
+    ExhaustiveStore,
+    FingerprintScanStore,
+    HashChainStore,
+    SortedFingerprintStore,
 )
 from .types import (
     SFA,

@@ -28,9 +28,11 @@ a set known before the first round. Results are bit-identical to the
 reference package's ``construct_bank``: same δ_s, state order, mappings,
 fingerprints, blowup and retry verdicts.
 
-Only ``method="batched"`` with ``distribution="local"`` exists in the port so
-far (``"auto"`` resolves to ``"batched"``; the reference's loop method gives
-bit-identical results).
+``method="loop"`` is the per-pattern loop over
+:func:`~.single.construct_sfa` (``engine=`` picks the single-pattern
+engine); ``"auto"`` batches at least :data:`AUTO_BATCH_MIN` patterns and
+loops over fewer, the rule of the reference's ``Scanner``. Both methods give
+bit-identical SFAs. Only ``distribution="local"`` exists in the port so far.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from .types import (
     SFA,
     SFAStats,
     FingerprintCollision,
+    StateBlowup,
 )
 
 _U32MAX = 0xFFFFFFFF
@@ -86,8 +89,13 @@ EXPAND_BACKENDS = ("auto", "kernel", "plain")
 #: Size-bucketing modes (see :func:`construct_bank`).
 BUCKETINGS = ("auto", "size", "off")
 
-#: Construction methods the port runs. ``"auto"`` resolves to ``"batched"``.
-METHODS = ("auto", "batched")
+#: Construction methods. ``"auto"`` resolves by :func:`resolve_method`.
+METHODS = ("auto", "batched", "loop")
+
+#: ``method="auto"`` batches banks of at least this many patterns and loops
+#: over smaller ones (the reference's ``Scanner`` rule: a bank round has to
+#: amortise its set-up over enough patterns).
+AUTO_BATCH_MIN = 4
 
 #: Buckets smaller than this merge into a neighbor.
 _BUCKET_MIN_PATTERNS = 4
@@ -338,6 +346,16 @@ def round_schedule(*, tile: int, n: int, k: int, max_states: int, P: int,
     )
 
 
+def resolve_method(method: str, n_patterns: int) -> str:
+    """``"auto"`` -> ``"batched"`` for at least :data:`AUTO_BATCH_MIN`
+    patterns, else ``"loop"``; an explicit method is returned as it is."""
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    if method == "auto":
+        return "batched" if n_patterns >= AUTO_BATCH_MIN else "loop"
+    return method
+
+
 def _resolve_backend(backend: str, choices: tuple, what: str,
                      device: torch.device) -> str:
     if backend not in choices:
@@ -393,6 +411,7 @@ def construct_bank(
     max_retries: int = 4,
     poly_index: int = 0,
     method: str = "batched",
+    engine: str = "vectorized",
     distribution: str = "local",
     on_blowup: str = "skip",
     fingerprint_backend: str = "auto",
@@ -403,6 +422,11 @@ def construct_bank(
     _weight_fn=None,
 ) -> BankConstructionResult:
     """Construct the exact SFA of every pattern in one batched closure.
+
+    ``method``: ``"batched"`` (the bank rounds below), ``"loop"`` (one
+    :func:`~.single.construct_sfa` per pattern with ``engine=``) or
+    ``"auto"`` (:func:`resolve_method`); all give bit-identical SFAs, and
+    ``result.stats.method`` names the one that ran.
 
     ``device`` is where the rounds run (``"cuda"`` by default; asking for
     CUDA without a card raises). ``on_blowup``: ``"skip"`` marks patterns
@@ -431,12 +455,7 @@ def construct_bank(
     dfas = list(dfas)
     if not dfas:
         raise ValueError("empty pattern bank")
-    if method == "loop":
-        raise NotImplementedError(
-            "method='loop' is not ported yet; 'batched' gives bit-identical "
-            "SFAs")
-    if method not in METHODS:
-        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    method = resolve_method(method, len(dfas))
     if distribution == "shard_map":
         raise NotImplementedError(
             "distribution='shard_map' is not ported yet (multi-device "
@@ -459,13 +478,19 @@ def construct_bank(
     if bucket_growth < 2:
         raise ValueError(f"bucket_growth must be >= 2, got {bucket_growth}")
 
-    result = _construct_bucketed(
-        dfas, max_states=max_states, tile=tile, max_retries=max_retries,
-        poly_index=poly_index, fp_backend=fp_backend,
-        expand_backend=exp_backend, bucketing=bucketing,
-        bucket_growth=bucket_growth,
-        weight_fn=_weight_fn or _default_weight_fn, device=dev,
-    )
+    if method == "loop":
+        result = _construct_loop(
+            dfas, max_states=max_states, max_retries=max_retries,
+            engine=engine, poly_index=poly_index, device=dev,
+        )
+    else:
+        result = _construct_bucketed(
+            dfas, max_states=max_states, tile=tile, max_retries=max_retries,
+            poly_index=poly_index, fp_backend=fp_backend,
+            expand_backend=exp_backend, bucketing=bucketing,
+            bucket_growth=bucket_growth,
+            weight_fn=_weight_fn or _default_weight_fn, device=dev,
+        )
     if on_blowup == "raise":
         result.require_all()
     return result
@@ -563,6 +588,39 @@ def _construct_bucketed(dfas, *, max_states, tile, max_retries, poly_index,
                 stats.wall_time_s * int(stats.pattern_rounds[p]) / total_rounds
                 if total_rounds else 0.0
             )
+    return BankConstructionResult(sfas=sfas, blown=blown, stats=stats)
+
+
+def _construct_loop(dfas, *, max_states, max_retries, engine, poly_index,
+                    device):
+    """One :func:`~.single.construct_sfa` per pattern, in bank order."""
+    from .single import construct_sfa
+
+    t0 = time.perf_counter()
+    P = len(dfas)
+    stats = BankStats(
+        method="loop",
+        pattern_rounds=np.zeros(P, np.int64),
+        retries=np.zeros(P, np.int64),
+        pattern_candidates=np.zeros(P, np.int64),
+    )
+    sfas: list = [None] * P
+    blown = np.zeros(P, dtype=bool)
+    for p, d in enumerate(dfas):
+        try:
+            sfa = construct_sfa(
+                d, engine=engine, max_states=max_states,
+                max_retries=max_retries, poly_index=poly_index, device=device,
+            )
+        except StateBlowup:
+            blown[p] = True
+            continue
+        sfas[p] = sfa
+        stats.rounds += sfa.stats.rounds
+        stats.pattern_rounds[p] = sfa.stats.rounds
+        stats.pattern_candidates[p] = sfa.stats.candidates
+    stats.candidates = int(stats.pattern_candidates.sum())
+    stats.wall_time_s = time.perf_counter() - t0
     return BankConstructionResult(sfas=sfas, blown=blown, stats=stats)
 
 

@@ -1,0 +1,142 @@
+"""Single-pattern construction entry points over the shared worklist core.
+
+* :func:`construct_sfa_sequential` — paper Algorithm 1 on the host, with
+  the §III-A optimizations as toggles that select a membership store of
+  :mod:`.stores` (the Fig. 4 ablation is a store swap).
+* :func:`construct_sfa_vectorized` — the bulk frontier closure on a device
+  (``"cuda"`` by default): the ``expand_bank`` and ``fingerprint`` kernels
+  and a ``searchsorted`` membership.
+* :func:`construct_sfa` — the exactness wrapper: on a detected fingerprint
+  collision, retry with the next irreducible polynomial of the sequence
+  (attempt ``a`` uses polynomial ``poly_index + a``). ``engine="jax"``
+  keeps the reference's name for the ``P = 1`` case of
+  :func:`~.batched.construct_bank`, so the engine lists of the two packages
+  match.
+
+All engines give bit-identical SFAs. The reference's content-addressed
+``SFACache`` is not ported yet: ``cache`` takes only ``None``/``"off"``.
+"""
+
+from __future__ import annotations
+
+from ..core.dfa import DFA
+from ..core.fingerprint import BarrettConstants, nth_poly_low
+from ..device import resolve_device
+from .stores import (
+    ExhaustiveStore,
+    FingerprintScanStore,
+    HashChainStore,
+    SortedFingerprintStore,
+)
+from .types import SFA, FingerprintCollision, SFAStats
+from .worklist import close_bulk, close_scalar
+
+#: Single-pattern engines, as the reference's construction plan names them.
+ENGINES = ("vectorized", "sequential", "jax")
+
+
+def _consts_for(poly_index: int) -> BarrettConstants:
+    return BarrettConstants.cached(nth_poly_low(poly_index))
+
+
+def construct_sfa_sequential(
+    dfa: DFA,
+    *,
+    use_fingerprints: bool = True,
+    use_hashing: bool = True,
+    poly_index: int = 0,
+    max_states: int = 1_000_000,
+) -> SFA:
+    """Algorithm 1 with the paper's §III-A optimizations as toggles.
+
+    - fingerprints off: membership is the exhaustive vector comparison against
+      every known state (the paper's baseline — O(|Q|·|Q_s|) per test).
+    - fingerprints on, hashing off: linear scan compares 64-bit fingerprints,
+      exact vector compare only on fingerprint equality.
+    - hashing on (requires fingerprints): dict keyed by fingerprint with
+      collision chains — the paper's hash table, O(1) expected.
+    """
+    if use_hashing and not use_fingerprints:
+        raise ValueError("hashing requires fingerprints (paper §III-A)")
+    stats = SFAStats(engine="sequential")
+    if not use_fingerprints:
+        store = ExhaustiveStore(stats)
+    elif use_hashing:
+        store = HashChainStore(stats, _consts_for(poly_index))
+    else:
+        store = FingerprintScanStore(stats, _consts_for(poly_index))
+    return close_scalar(dfa, store, stats, max_states=max_states)
+
+
+def construct_sfa_vectorized(
+    dfa: DFA,
+    *,
+    poly_index: int = 0,
+    max_states: int = 4_000_000,
+    tile: int = 4096,
+    device="cuda",
+) -> SFA:
+    """Bulk-synchronous frontier closure on ``device`` (``"cuda"`` by
+    default; asking for CUDA without a card raises)."""
+    stats = SFAStats(engine="vectorized")
+    store = SortedFingerprintStore(stats, _consts_for(poly_index),
+                                   dfa.n_states, resolve_device(device))
+    return close_bulk(dfa, store, stats, max_states=max_states, tile=tile)
+
+
+def _construct_sfa_bank(dfa: DFA, *, poly_index: int = 0,
+                        max_states: int = 200_000, tile: int = 256,
+                        device="cuda") -> SFA:
+    """The bank construction with one pattern (the reference's
+    ``engine="jax"``). Raises :class:`FingerprintCollision` on a detected
+    collision; :func:`construct_sfa` retries with the next polynomial."""
+    from .batched import construct_bank
+
+    result = construct_bank(
+        [dfa], max_states=max_states, tile=tile, poly_index=poly_index,
+        max_retries=1, method="batched", on_blowup="raise", device=device,
+    )
+    sfa = result.sfas[0]
+    sfa.stats.engine = "jax"
+    return sfa
+
+
+def construct_sfa(
+    dfa: DFA,
+    *,
+    engine: str = "vectorized",
+    max_states: int = 4_000_000,
+    max_retries: int = 4,
+    poly_index: int = 0,
+    cache=None,
+    device="cuda",
+    **kwargs,
+) -> SFA:
+    """Construct the exact SFA; on a detected fingerprint collision, retry
+    with a fresh irreducible polynomial (paper §II: P is random).
+    ``poly_index`` is the base of the retry sequence (attempt ``a`` uses
+    polynomial ``poly_index + a``), matching ``construct_bank``'s.
+
+    ``device`` is where the ``"vectorized"`` and ``"jax"`` engines run;
+    ``"sequential"`` runs on the host. ``kwargs`` go to the engine.
+    """
+    if cache not in (None, "off"):
+        raise NotImplementedError(
+            "the construction cache is not ported yet; pass cache=None")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine != "sequential":
+        kwargs["device"] = device
+    build = {
+        "sequential": construct_sfa_sequential,
+        "vectorized": construct_sfa_vectorized,
+        "jax": _construct_sfa_bank,
+    }[engine]
+    last: Exception | None = None
+    for attempt in range(max_retries):
+        try:
+            return build(dfa, poly_index=poly_index + attempt,
+                         max_states=max_states, **kwargs)
+        except FingerprintCollision as e:  # pragma: no cover (rare)
+            last = e
+    raise last  # pragma: no cover

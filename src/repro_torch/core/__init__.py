@@ -14,7 +14,7 @@ from .fingerprint import (
     fingerprint_states_np,
     nth_poly_low,
 )
-from .monoid import Monoid, function_monoid, reduce
+from .monoid import Monoid, exclusive_scan, function_monoid, reduce, scan
 from .multipattern import PatternBank, census_sequential
 from .prosite import (
     PROSITE_EXTRA,

@@ -12,13 +12,34 @@ function:
   chunk as one vectorized gather.
 
 These single-chunk versions are the readable statement of what
-``kernels/csrc/match_bank_chunks.cu`` computes for every (pattern, chunk)
-cell at once; the engine goes through the kernel wrapper instead.
+``kernels/csrc/match_chunks.cu`` and ``match_bank_chunks.cu`` compute for
+every (pattern, chunk) cell at once; the engine goes through the kernel
+wrappers instead. ``chunk_accept_trace`` is the second pass of match
+localization, and ``match_sequential`` / ``match_ends_sequential`` are the
+sequential oracles (NumPy, as in the reference).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .dfa import DFA
+
+
+def match_sequential(dfa: DFA, symbols: np.ndarray) -> int:
+    """Final state of a plain sequential DFA run (paper Fig. 1c)."""
+    return dfa.run(symbols)
+
+
+def match_ends_sequential(dfa: DFA, symbols: np.ndarray) -> np.ndarray:
+    """Accepting-state flag after every position (for match localization)."""
+    out = np.zeros(len(symbols), dtype=bool)
+    s = dfa.start
+    for i, x in enumerate(np.asarray(symbols, dtype=np.int64)):
+        s = int(dfa.table[s, x])
+        out[i] = bool(dfa.accepting[s])
+    return out
 
 
 def chunk_mapping_enumeration(table: torch.Tensor,
@@ -40,3 +61,18 @@ def chunk_state_sfa(delta_s: torch.Tensor, chunk: torch.Tensor,
     for sym in chunk.tolist():
         s = int(delta_s[s, sym])
     return torch.tensor(s, dtype=torch.int32, device=delta_s.device)
+
+
+def chunk_accept_trace(table: torch.Tensor, accepting: torch.Tensor,
+                       chunks: torch.Tensor,
+                       entry_states: torch.Tensor) -> torch.Tensor:
+    """Accept flags after every position of each chunk, from its entry
+    state: (n, k) table, (n,) accepting, (B, L) chunks, (B,) entry states
+    -> (B, L) bool. One gather per position, all chunks at once."""
+    chunks = chunks.to(torch.int64)
+    s = entry_states.to(torch.int64)
+    flags = torch.empty(chunks.shape, dtype=torch.bool, device=chunks.device)
+    for t in range(chunks.shape[1]):
+        s = table[s, chunks[:, t]].to(torch.int64)
+        flags[:, t] = accepting[s]
+    return flags

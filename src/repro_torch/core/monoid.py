@@ -2,10 +2,14 @@
 
 An SFA state *is* the lifted element — the transition function of a string
 chunk — and combining chunk results by function composition is the monoid
-reduce. This slice of the port carries the function monoid and the
-sequential ``reduce`` the scan engine folds its chunk functions with; that
-fold runs outside any kernel in the reference too, so plain ``torch.gather``
-is the whole implementation.
+reduce. The port carries the function monoid and its three execution
+strategies: the sequential ``reduce`` the scan engine folds its chunk
+functions with, and the inclusive and exclusive ``scan``s behind
+``locate``'s entry states and ``census_windows``' sliding windows.
+
+The function monoid's combine is the ``compose`` kernel
+(``kernels/csrc/compose.cu`` for CUDA tensors, its plain ``torch.gather``
+version for CPU tensors), so every reduce and scan here runs on it.
 """
 
 from __future__ import annotations
@@ -30,12 +34,29 @@ class Monoid:
     name: str = "monoid"
 
 
-def function_monoid() -> Monoid:
-    """Elements: mapping vectors ``f`` of shape (..., n), integer dtype;
-    ``combine(f, g)[..., q] = g[..., f[..., q]]`` (apply f, then g)."""
+def function_monoid(compose=None) -> Monoid:
+    """Elements: int32 mapping vectors ``f`` of shape (..., n);
+    ``combine(f, g)[..., q] = g[..., f[..., q]]`` (apply f, then g).
+
+    ``compose`` is the (B, n) x (B, n) -> (B, n) combine the elements are
+    flattened to: ``kernels.ops.compose`` by default; ``chip_smoke.py``
+    passes the plain version to run a path without the kernel.
+    """
 
     def combine(f, g):
-        return torch.gather(g, -1, f.to(torch.int64))
+        fn = compose
+        if fn is None:
+            # Imported here: kernels.ops -> kernels.ref -> core.fingerprint
+            # would otherwise import in a cycle with this package.
+            from ..kernels import ops
+
+            fn = ops.compose
+        f, g = torch.broadcast_tensors(f, g)
+        shape = f.shape
+        n = shape[-1]
+        # reshape materialises broadcast identities and strided slices.
+        out = fn(f.reshape(-1, n).contiguous(), g.reshape(-1, n).contiguous())
+        return out.view(shape)
 
     def identity(like):
         n = like.shape[-1]
@@ -53,3 +74,38 @@ def reduce(monoid: Monoid, xs: torch.Tensor, axis: int = 0) -> torch.Tensor:
     for i in range(1, moved.shape[0]):
         out = monoid.combine(out, moved[i])
     return out
+
+
+def scan(monoid: Monoid, xs: torch.Tensor, axis: int = 0,
+         reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix-combine along ``axis``: element ``i`` is the combine
+    of elements ``0 .. i`` in order. ``reverse=True`` scans from the end, as
+    ``jax.lax.associative_scan(reverse=True)`` does: element ``i`` folds
+    ``x[L-1], x[L-2], .., x[i]`` in that order (pair it with an
+    argument-flipped monoid for suffix compositions).
+
+    Log-depth (Hillis–Steele): step ``d = 1, 2, 4, ..`` combines every
+    element with the one ``d`` before it, one batched combine per step. The
+    grouping differs from the reference's, which is exact for an associative
+    combine such as function composition.
+    """
+    x = torch.movedim(xs, axis, 0)
+    if reverse:
+        x = torch.flip(x, (0,))
+    L = x.shape[0]
+    d = 1
+    while d < L:
+        x = torch.cat([x[:d], monoid.combine(x[:-d], x[d:])])
+        d *= 2
+    if reverse:
+        x = torch.flip(x, (0,))
+    return torch.movedim(x, 0, axis)
+
+
+def exclusive_scan(monoid: Monoid, xs: torch.Tensor,
+                   axis: int = 0) -> torch.Tensor:
+    """Exclusive prefix: element ``i`` is the combine of elements
+    ``[0, i)``, the identity for ``i = 0`` — each chunk's entry function."""
+    inclusive = torch.movedim(scan(monoid, xs, axis=axis), axis, 0)
+    first = monoid.identity(inclusive[:1])
+    return torch.movedim(torch.cat([first, inclusive[:-1]]), 0, axis)

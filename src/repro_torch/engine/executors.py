@@ -9,11 +9,13 @@ Layout conventions (shared with ``core.multipattern.PatternBank``):
   the SFA path's chunk functions equal enumeration's entry for entry;
 * chunk functions combine with ``monoid.function_monoid``.
 
-The chunk walks go through ``kernels.ops.match_bank_chunks`` (the CUDA
-kernel for CUDA tensors); ``match_fn`` swaps in another function of the same
-signature, such as the plain version ``kernels.ref.match_bank_chunks``.
-Everything else here is plain PyTorch gathers, as the reference left it to
-XLA.
+The chunk walks go through ``kernels.ops.match_chunks`` (one table) and
+``kernels.ops.match_bank_chunks`` (a bank) — the CUDA kernels for CUDA
+tensors — and every combine of chunk functions through the ``compose``
+kernel behind ``monoid.function_monoid``. ``match_fn`` / ``monoid`` swap in
+other functions of the same signature, such as the plain versions of
+``kernels.ref``. The rest is plain PyTorch gathers, as the reference left it
+to XLA.
 """
 
 from __future__ import annotations
@@ -21,10 +23,85 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..construction import SFA
 from ..core import monoid as M
+from ..core.dfa import DFA
+from ..core.matching import chunk_accept_trace
+from ..device import resolve_device
 from ..kernels import ops
 
 FN = M.function_monoid()
+
+
+# --------------------------------------------------------------------------
+# Single-pattern parallel matching (one input, one automaton)
+# --------------------------------------------------------------------------
+
+
+def _split(symbols: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    L = symbols.shape[0]
+    if L % n_chunks:
+        raise ValueError(f"input length {L} is not a multiple of "
+                         f"n_chunks={n_chunks} (pad or crop first)")
+    return symbols.contiguous().view(n_chunks, L // n_chunks)
+
+
+def match_parallel_enumeration(table: torch.Tensor, symbols: torch.Tensor,
+                               n_chunks: int = 8) -> torch.Tensor:
+    """Parallel match via enumeration: (n, k) table, (L,) symbols -> the
+    (n,) mapping of the whole input. ``L`` must be a multiple of
+    ``n_chunks``."""
+    return M.reduce(FN, ops.match_chunks(table, _split(symbols, n_chunks)),
+                    axis=0)
+
+
+def match_parallel_sfa(delta_s: torch.Tensor, sfa_mappings: torch.Tensor,
+                       symbols: torch.Tensor,
+                       n_chunks: int = 8) -> torch.Tensor:
+    """Parallel match via the SFA (the paper's method): each chunk walks
+    δ_s from SFA state 0 (one lane of ``match_bank_chunks``), its mapping
+    is read off the final state, and the chunks fold -> (n,)."""
+    finals = ops.match_bank_chunks(delta_s[None], _split(symbols, n_chunks),
+                                   1)[0, :, 0]
+    return M.reduce(FN, sfa_mappings[finals.to(torch.int64)], axis=0)
+
+
+def find_matches_parallel(table: torch.Tensor, accepting: torch.Tensor,
+                          symbols: torch.Tensor, start: int,
+                          n_chunks: int = 8, *, match_fn=None,
+                          monoid: M.Monoid = FN) -> torch.Tensor:
+    """Per-position accept flags (L,) bool, in two parallel passes: (1)
+    chunk functions (``match_chunks``) and their exclusive scan give each
+    chunk's entry state; (2) every chunk's accept trace from its entry
+    state, all chunks at once."""
+    match_fn = match_fn or ops.match_chunks
+    chunks = _split(symbols, n_chunks)
+    prefix = M.exclusive_scan(monoid, match_fn(table, chunks), axis=0)
+    entry = prefix[:, start]                              # (n_chunks,)
+    return chunk_accept_trace(table, accepting, chunks, entry).reshape(-1)
+
+
+def accepts_parallel(dfa: DFA, text: str, n_chunks: int = 8,
+                     sfa: SFA | None = None, device="cuda") -> bool:
+    """Does ``text`` match? The head (a multiple of ``n_chunks`` symbols)
+    runs chunk-parallel on ``device`` — through the SFA when one is given,
+    else by enumeration — and the ragged tail sequentially on the host."""
+    dev = resolve_device(device)
+    symbols = dfa.encode(text)
+    head_len = len(symbols) - len(symbols) % n_chunks
+    state = dfa.start
+    if head_len:
+        head = torch.as_tensor(symbols[:head_len], device=dev)
+        if sfa is not None:
+            mapping = match_parallel_sfa(
+                torch.as_tensor(sfa.delta, device=dev),
+                torch.as_tensor(sfa.mappings, device=dev), head, n_chunks)
+        else:
+            mapping = match_parallel_enumeration(
+                torch.as_tensor(dfa.table, device=dev), head, n_chunks)
+        state = int(mapping[dfa.start])
+    state = dfa.run(symbols[head_len:], state=state)
+    return bool(dfa.accepting[state])
 
 
 # --------------------------------------------------------------------------
@@ -74,7 +151,8 @@ def _chunks_of(corpus: torch.Tensor, n_chunks: int) -> torch.Tensor:
 
 
 def bank_doc_mappings(tables: torch.Tensor, corpus: torch.Tensor,
-                      n_chunks: int = 8, *, match_fn=None) -> torch.Tensor:
+                      n_chunks: int = 8, *, match_fn=None,
+                      monoid: M.Monoid = FN) -> torch.Tensor:
     """Enumeration final mapping of every (pattern, doc): (P, n, k) int32,
     (D, L) int32 -> (P, D, n) int32. Every (pattern, chunk) transition
     function comes from one kernel call over the flattened ``D·n_chunks``
@@ -83,12 +161,13 @@ def bank_doc_mappings(tables: torch.Tensor, corpus: torch.Tensor,
     D = corpus.shape[0]
     P, n, _ = tables.shape
     fns = match_fn(tables, _chunks_of(corpus, n_chunks), n)  # (P, D*nc, n)
-    return M.reduce(FN, fns.view(P, D, n_chunks, n), axis=2)
+    return M.reduce(monoid, fns.view(P, D, n_chunks, n), axis=2)
 
 
 def bank_doc_mappings_sfa(deltas: torch.Tensor, sfa_maps: torch.Tensor,
                           corpus: torch.Tensor, n_chunks: int = 8, *,
-                          match_fn=None) -> torch.Tensor:
+                          match_fn=None,
+                          monoid: M.Monoid = FN) -> torch.Tensor:
     """SFA-mode final mapping of every (pattern, doc): (P, S, k) deltas,
     (P, S, n) mapping stacks, (D, L) -> (P, D, n). The SFA delta *is* a DFA
     table, so the same kernel walks each chunk from SFA state 0 (one lane,
@@ -104,8 +183,63 @@ def bank_doc_mappings_sfa(deltas: torch.Tensor, sfa_maps: torch.Tensor,
     rows = torch.arange(P, device=deltas.device)[:, None]
     out = sfa_maps[rows, finals[:, :, 0]]
     for c in range(1, n_chunks):
-        out = FN.combine(out, sfa_maps[rows, finals[:, :, c]])
+        out = monoid.combine(out, sfa_maps[rows, finals[:, :, c]])
     return out
+
+
+def match_bank_parallel(tables: torch.Tensor, symbols: torch.Tensor,
+                        n_chunks: int = 8) -> torch.Tensor:
+    """Final mappings of one input under every pattern: (P, n, k), (L,) ->
+    (P, n) int32 (enumeration)."""
+    return bank_doc_mappings(tables, symbols[None], n_chunks)[:, 0]
+
+
+def match_bank_parallel_sfa(deltas: torch.Tensor, sfa_maps: torch.Tensor,
+                            symbols: torch.Tensor,
+                            n_chunks: int = 8) -> torch.Tensor:
+    """SFA-mode twin of :func:`match_bank_parallel`: (P, S, k) deltas,
+    (P, S, n) mapping stacks, (L,) -> (P, n), bit-identical to it on the
+    same padded layout."""
+    return bank_doc_mappings_sfa(deltas, sfa_maps, symbols[None],
+                                 n_chunks)[:, 0]
+
+
+def sliding_window_mappings(block_maps: torch.Tensor, m: int
+                            ) -> torch.Tensor:
+    """All length-``m`` sliding-window compositions of consecutive block
+    transition functions: (Pg, B, n) -> (Pg, B - m + 1, n), output ``w``
+    being ``block w`` then ... then ``block w+m-1``.
+
+    The Gil–Werman trick on the function monoid: tile the block axis into
+    groups of ``m``, run one *suffix* scan and one *prefix* scan per tile
+    (each block's function enters two log-depth scans), and stitch window
+    ``w = t·m + j`` as ``suffix[t, j]`` then ``prefix[t+1, j-1]`` (identity
+    when ``j = 0``). Composition is exactly associative, so the result is
+    bit-identical to composing every window on its own.
+    """
+    Pg, B, n = block_maps.shape
+    W = B - m + 1
+    if W < 1:
+        raise ValueError(f"need at least m={m} blocks, got {B}")
+    if m == 1:
+        return block_maps
+    T = -(-B // m)  # tiles of m blocks, the last padded with identities
+    ident = torch.arange(n, dtype=block_maps.dtype, device=block_maps.device)
+    x = torch.cat([block_maps, ident.expand(Pg, T * m - B, n)], dim=1)
+    x = x.view(Pg, T, m, n)
+    # A reverse scan folds the right end in first, so the suffix combine
+    # "block j then j+1 then ..." needs the argument-flipped monoid.
+    flipped = M.Monoid(lambda a, b: FN.combine(b, a), FN.identity, FN.name)
+    suffix = M.scan(flipped, x, axis=2, reverse=True)  # [t,j] = tm+j..tm+m-1
+    prefix = M.scan(FN, x, axis=2)                     # [t,j] = tm..tm+j
+    # The prefix shifted one block right within each tile (j = 0 ->
+    # identity) and one whole tile down: flat index w + m lands on tile t+1,
+    # offset j.
+    shifted = torch.cat([ident.expand(Pg, T, 1, n), prefix[:, :, :-1]], dim=2)
+    shifted = torch.cat([shifted, ident.expand(Pg, 1, m, n)], dim=1)
+    s_flat = suffix.reshape(Pg, T * m, n)[:, :W]
+    q_flat = shifted.reshape(Pg, (T + 1) * m, n)[:, m:m + W]
+    return FN.combine(s_flat, q_flat)
 
 
 def hits_of_mappings(maps: torch.Tensor, accepting: torch.Tensor,

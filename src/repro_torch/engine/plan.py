@@ -23,6 +23,8 @@ import torch
 
 MODES = ("auto", "sfa", "enumeration")
 BACKENDS = ("reference", "kernel")
+CONSTRUCTION_METHODS = ("auto", "batched", "loop")
+CONSTRUCTION_ENGINES = ("vectorized", "sequential", "jax")
 CONSTRUCTION_FP_BACKENDS = ("auto", "kernel", "plain")
 CONSTRUCTION_EXPAND_BACKENDS = ("auto", "kernel", "plain")
 CONSTRUCTION_BUCKETINGS = ("auto", "size", "off")
@@ -44,19 +46,24 @@ SPECULATION_AUTO_STATES = 128
 class ChunkPolicy:
     """How inputs are cut into the paper's parallel chunks.
 
-    ``n_chunks``: chunk-level parallelism per document (the paper's thread
-    count). ``bucket`` / ``bucket_edges``: size-bucketing of the pattern
+    ``n_chunks``: chunk-level parallelism per document and per stream
+    block (the paper's thread count). ``block_len``: symbols per chunk in
+    the streaming path, so one stream block is ``n_chunks * block_len``
+    symbols. ``bucket`` / ``bucket_edges``: size-bucketing of the pattern
     bank, so no pattern pays gathers more than ~2x wider than its own
     automaton.
     """
 
     n_chunks: int = 8
+    block_len: int = 256
     bucket: bool = False
     bucket_edges: tuple = (8, 16, 32, 64, 128, 256, 1024)
 
     def validate(self) -> "ChunkPolicy":
         if self.n_chunks < 1:
             raise ValueError(f"n_chunks must be >= 1, got {self.n_chunks}")
+        if self.block_len < 1:
+            raise ValueError(f"block_len must be >= 1, got {self.block_len}")
         if self.bucket and not self.bucket_edges:
             raise ValueError("bucket=True requires non-empty bucket_edges")
         return self
@@ -67,6 +74,12 @@ class ConstructionPolicy:
     """How ``Scanner.compile`` builds the SFAs its plan needs (one
     :func:`~..construction.construct_bank` call for every pattern).
 
+    ``method``: ``"batched"`` (all frontiers advance together in bank
+    rounds), ``"loop"`` (one :func:`~..construction.construct_sfa` per
+    pattern, ``engine`` picks the single-pattern engine) or ``"auto"``
+    (batched for at least four patterns, loop for fewer — the reference's
+    rule). ``engine``: ``"vectorized"``, ``"sequential"`` or ``"jax"`` (the
+    reference's name for the one-pattern bank construction).
     ``cache``: ``"off"`` — the content-addressed construction cache is a
     later slice.
     ``tile`` / ``max_retries``: frontier states per pattern per round, and
@@ -76,6 +89,8 @@ class ConstructionPolicy:
     the shape schedule's bucket shrink factor.
     """
 
+    method: str = "auto"
+    engine: str = "vectorized"
     tile: int = 128
     cache: Any = "off"
     max_retries: int = 4
@@ -86,6 +101,8 @@ class ConstructionPolicy:
 
     def validate(self) -> "ConstructionPolicy":
         checks = (
+            ("method", self.method, CONSTRUCTION_METHODS),
+            ("engine", self.engine, CONSTRUCTION_ENGINES),
             ("cache", self.cache, CONSTRUCTION_CACHES),
             ("fingerprint_backend", self.fingerprint_backend,
              CONSTRUCTION_FP_BACKENDS),

@@ -8,7 +8,10 @@ resolves each pattern's matching mode (``auto`` builds every SFA under the
 plan's state budget in one batched :func:`~..construction.construct_bank`
 closure and falls back to enumeration for patterns that blow up), stacks the
 per-pattern tables into padded device tensors, and returns a scanner with
-``scan`` / ``census`` / ``mapping`` / ``accepts``.
+``scan`` / ``census`` / ``mapping`` / ``accepts``, the one-sequence entry
+points ``locate`` (per-position matches) and ``census_windows`` (all sliding
+windows by prefix scans), and ``stream`` / ``open_stream`` (one input fed
+in pieces).
 
 Scans run on the plan's device: the chunk walks are the CUDA kernel, the
 chunk reduce and the hit read-off are device gathers, and only the
@@ -24,13 +27,14 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..construction import SFA, StateBlowup, construct_bank
+from ..construction import SFA, StateBlowup, construct_bank, resolve_method
 from ..core.bucketing import partition_by_size
 from ..core.dfa import DFA
 from ..core.multipattern import PatternBank
 from ..device import resolve_device
 from . import executors as X
 from .plan import SPECULATION_AUTO_STATES, ScanPlan
+from .streaming import StreamResult, StreamSession
 
 
 # --------------------------------------------------------------------------
@@ -157,11 +161,16 @@ def _resolve_sfas(ids, dfas, plan: ScanPlan, device: torch.device):
         return ["enumeration"] * P, {}, ConstructionReport()
     policy = plan.construction
     budget = plan.sfa_state_budget
+    # The reference resolves "auto" here, on the patterns that miss its SFA
+    # cache; with no cache in the port, that is every pattern.
+    method = resolve_method(policy.method, P)
     result = construct_bank(
         dfas,
         max_states=budget,
         tile=policy.tile,
         max_retries=policy.max_retries,
+        method=method,
+        engine=policy.engine,
         fingerprint_backend=policy.fingerprint_backend,
         expand_backend=policy.expand_backend,
         bucketing=policy.bucketing,
@@ -191,7 +200,7 @@ def _resolve_sfas(ids, dfas, plan: ScanPlan, device: torch.device):
     blown = int(result.blown.sum())
     report = ConstructionReport(
         rounds=result.stats.rounds, constructed=P - blown,
-        blown=blown, method="batched",
+        blown=blown, method=method,
         retries=int(np.sum(result.stats.retries)),
     )
     return modes, sfas, report
@@ -409,6 +418,118 @@ class Scanner:
         (P,) bool for a bank."""
         flags = self.scan([doc]).hits[:, 0]
         return bool(flags[0]) if self.single else flags
+
+    def census_windows(self, seq, window: int, stride: int | None = None
+                       ) -> ScanResult:
+        """Prefix-scan census of all sliding windows of one sequence.
+
+        The sequence is cut into ``stride``-symbol blocks, each block's
+        transition function is computed once (the chunk walks of ``scan``),
+        and every window's composition comes out of one prefix and one
+        suffix scan per tile of ``window // stride`` blocks
+        (:func:`.executors.sliding_window_mappings`), all on the device.
+        Composition is exactly associative, so ``hits`` is bit-identical to
+        ``scan`` of the materialised windows
+        ``seq[i*stride : i*stride + window]``.
+
+        ``stride`` must divide ``window`` (default ``stride = window``:
+        disjoint blocks). -> :class:`ScanResult` whose "docs" are the
+        ``(len(seq) - window) // stride + 1`` full windows.
+        """
+        stride = window if stride is None else stride
+        if window < 1 or stride < 1:
+            raise ValueError("window and stride must be >= 1")
+        if window % stride:
+            raise ValueError(
+                f"stride ({stride}) must divide window ({window}): the "
+                "prefix-scan census composes whole stride-blocks")
+        (_, enc), = self._length_batches([seq])
+        enc = enc[0]
+        L = len(enc)
+        m = window // stride
+        W = (L - window) // stride + 1 if L >= window else 0
+        hits = np.zeros((self.n_patterns, W), dtype=bool)
+        if W == 0:
+            return ScanResult(hits=hits, ids=self.ids)
+        B = W + m - 1
+        blocks = np.ascontiguousarray(enc[: B * stride].reshape(B, stride))
+        blocks_t = torch.as_tensor(blocks, device=self.device)
+        for g in self.groups:
+            maps = self._group_doc_mappings(g, blocks, blocks_t)  # (Pg, B, n)
+            wmaps = X.sliding_window_mappings(maps, m)            # (Pg, W, n)
+            acc = X.hits_of_mappings(wmaps, g.accepting, g.starts)
+            hits[g.indices, :] = acc.cpu().numpy()
+        return ScanResult(hits=hits, ids=self.ids)
+
+    def locate(self, doc, pattern=None) -> np.ndarray:
+        """Per-position accept flags of one doc under one pattern: the
+        two-pass chunk-parallel match localization
+        (:func:`.executors.find_matches_parallel`) on the head of
+        ``n_chunks`` equal chunks, the ragged tail sequentially on the host.
+        ``pattern`` is an id or an index; it defaults to the only pattern of
+        a single-pattern scanner."""
+        if pattern is None:
+            if not self.single:
+                raise ValueError("bank scanner: pass pattern=<id or index>")
+            p = 0
+        else:
+            p = (self.ids.index(pattern) if isinstance(pattern, str)
+                 else int(pattern))
+        d = self._dfas[p]
+        (_, enc), = self._length_batches([doc])
+        enc = enc[0]
+        n_chunks = self.plan.chunking.n_chunks
+        head_len = len(enc) - (len(enc) % n_chunks)
+        flags = np.zeros(len(enc), dtype=bool)
+        if head_len:
+            dev = self.device
+            flags[:head_len] = X.find_matches_parallel(
+                torch.as_tensor(d.table, device=dev),
+                torch.as_tensor(d.accepting, device=dev),
+                torch.as_tensor(enc[:head_len], device=dev), d.start,
+                n_chunks).cpu().numpy()
+        if head_len == len(enc):
+            return flags
+        # sequential tail from the head's final state
+        s = d.run(enc[:head_len]) if head_len else d.start
+        for i in range(head_len, len(enc)):
+            s = int(d.table[s, enc[i]])
+            flags[i] = bool(d.accepting[s])
+        return flags
+
+    # -- streaming ----------------------------------------------------------
+
+    def open_stream(self) -> StreamSession:
+        """Push API: feed pieces of one input, then ``finish()``."""
+        return StreamSession(self)
+
+    def stream(self, blocks) -> StreamResult:
+        """Scan one logically concatenated input delivered as an iterable of
+        pieces (strings or encoded int arrays) without holding it whole:
+        equal to ``mapping``/``accepts`` of the concatenation."""
+        sess = self.open_stream()
+        for b in blocks:
+            sess.feed(b)
+        return sess.finish()
+
+    # -- introspection ------------------------------------------------------
+
+    def describe(self) -> str:
+        r = self.construction_report
+        lines = [
+            f"Scanner: {self.n_patterns} pattern(s), alphabet |Σ|="
+            f"{len(self.alphabet)}, plan=({self.plan.mode}/"
+            f"{self.plan.backend}/{self.device}, "
+            f"n_chunks={self.plan.chunking.n_chunks})",
+            f"  construction: {r.rounds} round(s) via {r.method}, "
+            f"{r.constructed} built, {r.blown} blown",
+        ]
+        for g in self.groups:
+            extra = (f", S_max={int(g.deltas.shape[1])}" if g.mode == "sfa"
+                     else "")
+            lines.append(f"  group[{g.mode}]: {len(g.indices)} pattern(s), "
+                         f"n_max={g.n}{extra}")
+        return "\n".join(lines)
 
 
 def _reference_doc_mappings(tables: np.ndarray, corpus: np.ndarray

@@ -1,0 +1,167 @@
+"""Streaming input: one input far larger than memory, fed in pieces.
+
+The matching algorithm needs only each chunk's transition function and an
+associative combine, so the input need not be resident. A
+:class:`StreamSession` takes pieces (strings or encoded int arrays) of one
+logically concatenated input, buffers them into fixed-shape blocks of
+``n_chunks * block_len`` symbols, runs the full blocks of each piece through
+the plan's chunk matcher on the scanner's device (``match_bank_chunks`` for
+both scan modes), and folds their transition functions, in order, into a
+running function-monoid prefix that stays on the device (the ``compose``
+kernel). Memory holds one piece plus the ``(P, n)`` prefix, whatever the
+input's length.
+
+``StreamSession.finish()`` composes the ragged tail symbol by symbol and
+returns a :class:`StreamResult` whose mapping is bit-identical to
+``Scanner.mapping`` of the concatenated input.
+
+Speculative groups are a later slice of the port: ``Scanner.compile`` never
+makes one, and a session refuses any group that is not SFA or enumeration.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from ..core import monoid as M
+from . import executors as X
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .scanner import Scanner
+
+
+@dataclass(frozen=True)
+class StreamResult:
+    """Outcome of a streamed scan over one concatenated input.
+
+    ``mapping`` is the input's whole transition function, (P, n_max) on
+    the scanner's padded layout; ``final_states`` the state each pattern
+    ends in; ``accepted`` its accept flag.
+    """
+
+    mapping: np.ndarray         # (P, n_max)
+    final_states: np.ndarray    # (P,)
+    accepted: np.ndarray        # (P,) bool
+    n_symbols: int
+    ids: tuple
+    single: bool = False
+
+    @property
+    def accepts(self):
+        """bool for a single-pattern scanner, (P,) bool for a bank."""
+        return bool(self.accepted[0]) if self.single else self.accepted
+
+
+class StreamSession:
+    """Incremental (push-style) scan; create with ``Scanner.open_stream()``."""
+
+    def __init__(self, scanner: "Scanner"):
+        for g in scanner.groups:
+            if g.mode not in ("sfa", "enumeration"):
+                raise NotImplementedError(
+                    f"stream of a {g.mode!r} group: speculative scanning is "
+                    "a later slice of the port")
+        self.scanner = scanner
+        pol = scanner.plan.chunking
+        self.n_chunks = pol.n_chunks
+        self.block_len = pol.block_len
+        self.super_len = self.n_chunks * self.block_len
+        self._buf = np.zeros(0, dtype=np.int32)
+        self._n_symbols = 0
+        self._finished = False
+        # Running prefix per group: the function-monoid fold of everything
+        # consumed so far, on the scanner's device.
+        self._prefix = [
+            torch.arange(g.n, dtype=torch.int32, device=scanner.device)
+            .expand(len(g.indices), g.n).contiguous()
+            for g in scanner.groups
+        ]
+
+    # -- feeding ------------------------------------------------------------
+
+    def feed(self, piece) -> None:
+        """Append one piece of the input (str or 1-D int array)."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        sc = self.scanner
+        enc = (sc.encode(piece) if isinstance(piece, str)
+               else np.asarray(piece, dtype=np.int32))
+        if enc.ndim != 1:
+            raise ValueError("stream pieces must be 1-D (one input's symbols)")
+        if enc.size and (enc.min() < 0 or enc.max() >= sc.n_symbols):
+            raise ValueError(
+                f"stream symbols must lie in [0, {sc.n_symbols})")
+        self._n_symbols += len(enc)
+        self._buf = np.concatenate([self._buf, enc]) if len(self._buf) else enc
+        if len(self._buf) < self.super_len:
+            return
+        n_full = len(self._buf) // self.super_len
+        blocks = self._buf[: n_full * self.super_len].reshape(
+            n_full, self.super_len)
+        self._buf = self._buf[n_full * self.super_len:]
+        self._advance(blocks)
+
+    def _advance(self, blocks: np.ndarray) -> None:
+        """Fold full (n_chunks * block_len) blocks, in order, into the
+        prefix. The blocks of one piece go through the chunk matcher in one
+        call, as the documents of a scan do."""
+        sc = self.scanner
+        blocks_t = torch.as_tensor(blocks, device=sc.device)
+        for gi, g in enumerate(sc.groups):
+            if sc.plan.backend == "reference":
+                from .scanner import _reference_doc_mappings
+
+                bm = torch.as_tensor(
+                    _reference_doc_mappings(g.bank.tables, blocks),
+                    device=sc.device)
+            elif g.mode == "sfa":
+                bm = X.bank_doc_mappings_sfa(g.deltas, g.sfa_maps, blocks_t,
+                                             self.n_chunks)
+            else:
+                bm = X.bank_doc_mappings(g.tables, blocks_t, self.n_chunks)
+            # combine(prefix, blocks): apply the prefix first, then the
+            # blocks in order.
+            self._prefix[gi] = X.FN.combine(
+                self._prefix[gi], M.reduce(X.FN, bm, axis=1))
+
+    # -- finishing ----------------------------------------------------------
+
+    def finish(self) -> StreamResult:
+        """Compose the ragged tail, read off accepts, and close the stream."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        self._finished = True
+        sc = self.scanner
+        if len(self._buf):
+            tail = torch.as_tensor(self._buf, device=sc.device)
+            for gi, g in enumerate(sc.groups):
+                # Each of the n prefix entries is a state walking the tail.
+                n = self._prefix[gi].shape[1]
+                self._prefix[gi] = X.advance_states_sequential(
+                    g.tables, self._prefix[gi], tail.expand(n, len(tail)))
+            self._buf = np.zeros(0, dtype=np.int32)
+
+        mapping = np.broadcast_to(
+            np.arange(sc.n_max, dtype=np.int32), (sc.n_patterns, sc.n_max)
+        ).copy()
+        final_states = np.zeros(sc.n_patterns, dtype=np.int32)
+        accepted = np.zeros(sc.n_patterns, dtype=bool)
+        for gi, g in enumerate(sc.groups):
+            pref = self._prefix[gi]                          # (Pg, n_g)
+            mapping[g.indices, : g.n] = pref.cpu().numpy()
+            finals = pref.gather(1, g.starts.to(torch.int64)[:, None])
+            accepted[g.indices] = g.accepting.gather(
+                1, finals.to(torch.int64))[:, 0].cpu().numpy()
+            final_states[g.indices] = finals[:, 0].cpu().numpy()
+        return StreamResult(
+            mapping=mapping,
+            final_states=final_states,
+            accepted=accepted,
+            n_symbols=self._n_symbols,
+            ids=sc.ids,
+            single=sc.single,
+        )

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``_build/lib<name>-<hash>.so`` (a plain C interface; no PyTorch headers, so
-a build takes seconds), where ``<hash>`` is a digest of the source and the
-flags: an edited source never meets a stale library. The build runs at first
+a build takes seconds), where ``<hash>`` is a digest of the source, of every
+shared header ``csrc/*.cuh`` and of the flags: an edited source or header
+never meets a stale library. The build runs at first
 use, only from the sources in this package, for ``sm_90a`` (Hopper).
 :func:`build_all` starts one nvcc per missing library, all at once.
 
@@ -21,7 +22,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks")
+KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks", "compose",
+           "match_chunks", "fingerprint")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -52,9 +54,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str):

@@ -17,25 +17,16 @@
 // the W-word loop and all three accumulator limbs stay in registers; the
 // pattern's fold weights (at most 44*2 words at n_max = 87) and its four
 // Barrett limbs are staged once per block in shared memory, so the only
-// global traffic is each word read once and two words written per row.
+// global traffic is each word read once and two words written per row. The
+// fold and the Barrett step are clmul.cuh's, shared with fingerprint.cu.
 // u32 values arrive as int32 tensors carrying the same bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "clmul.cuh"
 
-__device__ __forceinline__ void clmul32(uint32_t a, uint32_t b, uint32_t &hi,
-                                        uint32_t &lo) {
-  hi = 0u;
-  lo = 0u;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const uint32_t mask = 0u - ((b >> i) & 1u);
-    lo ^= (a << i) & mask;
-    hi ^= ((a >> (31 - i)) >> 1) & mask;  // a >> (32 - i) without i == 0 UB
-  }
-}
+namespace {
 
 __global__ void fingerprint_bank_kernel(const uint32_t *__restrict__ words,
                                         const uint32_t *__restrict__ weights,
@@ -51,36 +42,8 @@ __global__ void fingerprint_bank_kernel(const uint32_t *__restrict__ words,
 
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const uint32_t *row = words + ((size_t)p * B + b) * W;
-
-  uint32_t l0 = 0u, l1 = 0u, l2 = 0u;
-  for (int i = 0; i < W; ++i) {
-    const uint32_t w = row[i];
-    uint32_t h, l;
-    clmul32(w, smem[2 * i + 1], h, l);  // x weight lo -> limbs 1, 0
-    l0 ^= l;
-    l1 ^= h;
-    clmul32(w, smem[2 * i], h, l);      // x weight hi -> limbs 2, 1
-    l1 ^= l;
-    l2 ^= h;
-  }
-
-  const uint32_t p_hi = smem[2 * W], p_lo = smem[2 * W + 1];
-  const uint32_t mu_hi = smem[2 * W + 2];  // mu_lo: see the Barrett step
-  // Barrett step on the 96-bit fold A = (l2, l1, l0). T1 = floor(A / t^64)
-  // is the one limb l2, so T2 = T1 ^ hi64(T1 * mu) = l2 ^ hi32(l2 * mu_hi)
-  // (l2 * mu_lo reaches no higher than limb 1): one 32x32 product.
-  uint32_t h, l;
-  clmul32(l2, mu_hi, h, l);
-  const uint32_t t2 = l2 ^ h;
-  // The low 64 bits of T2 * p_low cancel A's low limbs down to the residue;
-  // T2 is one limb, so two products (of t2 * p_hi only the low limb counts).
-  uint32_t r1, r0;
-  clmul32(t2, p_lo, r1, r0);
-  clmul32(t2, p_hi, h, l);
-  uint32_t *o = out + ((size_t)p * B + b) * 2;
-  o[0] = l1 ^ r1 ^ l;
-  o[1] = l0 ^ r0;
+  rabin::fold_reduce(words + ((size_t)p * B + b) * W, W, smem, smem + 2 * W,
+                     out + ((size_t)p * B + b) * 2);
 }
 
 }  // namespace

@@ -28,9 +28,10 @@ from . import build, ref
 launches = {name: 0 for name in build.KERNELS}
 
 #: Tables of at most this many bytes are staged in shared memory by
-#: ``match_bank_chunks`` (two blocks per SM); larger ones are read from
-#: global memory. The wrapper passes its choice to the launch, so this is
-#: the one place the threshold lives.
+#: ``match_bank_chunks`` and ``match_chunks`` (two blocks per SM); larger
+#: ones are read from global memory. The wrappers pass their choice to the
+#: launch, so this is the one place the threshold lives. ``match_chunks``
+#: counts its padded rows (``k | 1`` words).
 MATCH_SMEM_TABLE_MAX = 96 * 1024
 
 _VP = ctypes.c_void_p
@@ -42,6 +43,11 @@ _ARGTYPES = {
     "match_bank_chunks": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _VP],
+    "compose": [_VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, _VP],
+    "match_chunks": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP],
+    "fingerprint": [_VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+                    _VP],
 }
 
 
@@ -166,4 +172,69 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
             _launch("match_bank_chunks", tables.data_ptr(), chunks.data_ptr(),
                     out.data_ptr(), P, n, k, B, L, n_starts,
                     int(n * k * 4 <= MATCH_SMEM_TABLE_MAX))
+    return out
+
+
+def compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Function-monoid combine ("apply f, then g"): (B, n) mapping vectors
+    of state ids < n -> (B, n), ``out[b, q] = g[b, f[b, q]]``."""
+    dev = _check("compose", dict(f=f, g=g))
+    if f.dim() != 2 or f.shape != g.shape:
+        raise ValueError(f"compose: f and g must both be (B, n), got "
+                         f"{tuple(f.shape)} and {tuple(g.shape)}")
+    if dev.type == "cpu":
+        return ref.compose(f, g)
+    B, n = f.shape
+    out = torch.empty((B, n), dtype=torch.int32, device=dev)
+    if B and n:
+        with torch.cuda.device(dev):
+            _launch("compose", f.data_ptr(), g.data_ptr(), out.data_ptr(),
+                    B, n)
+    return out
+
+
+def match_chunks(table: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """Chunk walks of one table from every state: (n, k) table, (B, L)
+    chunk symbols < k -> (B, n), column ``q`` the state reached from ``q``.
+    A table whose rows padded to ``k | 1`` words take at most
+    :data:`MATCH_SMEM_TABLE_MAX` bytes is read from shared memory, a larger
+    one from global memory."""
+    dev = _check("match_chunks", dict(table=table, chunks=chunks))
+    if table.dim() != 2 or chunks.dim() != 2:
+        raise ValueError("match_chunks: table must be (n, k), chunks (B, L)")
+    if dev.type == "cpu":
+        return ref.match_chunks(table, chunks)
+    n, k = table.shape
+    B, L = chunks.shape
+    out = torch.empty((B, n), dtype=torch.int32, device=dev)
+    if B and n:
+        with torch.cuda.device(dev):
+            _launch("match_chunks", table.data_ptr(), chunks.data_ptr(),
+                    out.data_ptr(), n, k, B, L,
+                    int(n * (k | 1) * 4 <= MATCH_SMEM_TABLE_MAX))
+    return out
+
+
+def fingerprint(words: torch.Tensor, weights: torch.Tensor,
+                limbs: torch.Tensor) -> torch.Tensor:
+    """Rabin fingerprints under one polynomial: (B, W) packed words,
+    (W, 2) fold weights [hi, lo], (4,) Barrett limbs [p_hi, p_lo, mu_hi,
+    mu_lo] — int32 bit patterns of u32 values -> (B, 2) int32 [hi, lo]."""
+    dev = _check("fingerprint", dict(words=words, weights=weights,
+                                     limbs=limbs))
+    if words.dim() != 2:
+        raise ValueError(f"fingerprint: words must be (B, W), got "
+                         f"{tuple(words.shape)}")
+    B, W = words.shape
+    if tuple(weights.shape) != (W, 2) or tuple(limbs.shape) != (4,):
+        raise ValueError(
+            f"fingerprint: weights {tuple(weights.shape)} / limbs "
+            f"{tuple(limbs.shape)} do not fit words {tuple(words.shape)}")
+    if dev.type == "cpu":
+        return ref.fingerprint(words, weights, limbs)
+    out = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            _launch("fingerprint", words.data_ptr(), weights.data_ptr(),
+                    limbs.data_ptr(), out.data_ptr(), B, W)
     return out

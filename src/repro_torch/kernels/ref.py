@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the six CUDA kernels.
 
 Each function computes exactly what its kernel computes, on any device. The
 wrappers in :mod:`.ops` call these for CPU tensors; ``chip_smoke.py`` holds
@@ -76,3 +76,24 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
     for t in range(L):
         v = tables[rows, v, syms[None, :, t, None]].to(torch.int64)
     return v.to(torch.int32)
+
+
+def compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Function-monoid combine: f, g (B, n) int32 -> (B, n) int32,
+    ``out[b, q] = g[b, f[b, q]]`` (apply f, then g)."""
+    return torch.gather(g, 1, f.to(torch.int64))
+
+
+def match_chunks(table: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """Each chunk run through one table from every state: table (n, k)
+    int32, chunks (B, L) int32 symbols < k -> (B, n) int32 chunk mappings.
+    The one-table, all-states case of :func:`match_bank_chunks`."""
+    return match_bank_chunks(table[None], chunks, table.shape[0])[0]
+
+
+def fingerprint(words: torch.Tensor, weights: torch.Tensor,
+                limbs: torch.Tensor) -> torch.Tensor:
+    """Rabin fingerprints under one polynomial: words (B, W), weights
+    (W, 2), limbs (4,) — int32 bit patterns -> (B, 2) int32 [hi, lo]. The
+    one-pattern case of :func:`fingerprint_bank`."""
+    return fingerprint_bank(words[None], weights[None], limbs[None])[0]

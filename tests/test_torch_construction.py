@@ -173,11 +173,14 @@ def test_input_validation_and_unported_options():
         construct_bank(d, fingerprint_backend="xla", device="cpu")
     with pytest.raises(ValueError):
         construct_bank(d, bucketing="sometimes", device="cpu")
-    with pytest.raises(NotImplementedError):
-        construct_bank(d, method="loop", device="cpu")
+    with pytest.raises(ValueError):
+        construct_bank(d, method="loop", engine="xla", device="cpu")
     with pytest.raises(NotImplementedError):
         construct_bank(d, distribution="shard_map", device="cpu")
-    assert construct_bank(d, method="auto", device="cpu").sfas[0] is not None
+    loop = construct_bank(d, method="auto", device="cpu")
+    assert loop.stats.method == "loop" and loop.sfas[0] is not None
+    batched = construct_bank(d, method="batched", device="cpu")
+    assert np.array_equal(loop.sfas[0].delta, batched.sfas[0].delta)
 
 
 def test_cuda_default_raises_without_a_card():

@@ -16,9 +16,22 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core.fingerprint import BarrettConstants as JBarrett  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.clmul import fingerprint_bank_pallas  # noqa: E402
+from repro.kernels.clmul import fingerprint_pallas  # noqa: E402
+from repro.kernels.compose import compose_pallas  # noqa: E402
 from repro.kernels.expand import expand_bank_pallas  # noqa: E402
 from repro.kernels.match_scan import match_bank_chunks_pallas  # noqa: E402
+from repro.kernels.match_scan import match_chunks_pallas  # noqa: E402
+from repro_torch.core.fingerprint import (  # noqa: E402
+    BarrettConstants,
+    fold_weights_u32,
+    limbs_of,
+    nth_poly_low,
+    pack_states_u32,
+    u32_to_i32,
+)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 
@@ -83,6 +96,57 @@ def test_match_bank_chunks_matches_pallas(P, n, k, B, L):
     assert np.array_equal(part.numpy(), want[..., : n - 1])
 
 
+@pytest.mark.parametrize("B,n", [(1, 1), (3, 7), (5, 300)])
+def test_compose_matches_pallas(B, n):
+    rng = np.random.default_rng(B * 1000 + n)
+    f = rng.integers(0, n, size=(B, n)).astype(np.int32)
+    g = rng.integers(0, n, size=(B, n)).astype(np.int32)
+    want = np.asarray(compose_pallas(jnp.asarray(f), jnp.asarray(g),
+                                     block_q=128, interpret=True))
+    got = ops.compose(torch.from_numpy(f), torch.from_numpy(g))
+    assert got.dtype == torch.int32 and got.shape == (B, n)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), np.asarray(
+        jops.compose(jnp.asarray(f), jnp.asarray(g), interpret=True)))
+
+
+@pytest.mark.parametrize("n,k,B,L", [(1, 2, 1, 1), (3, 4, 2, 5), (6, 5, 3, 8),
+                                     (16, 20, 5, 12)])
+def test_match_chunks_matches_pallas(n, k, B, L):
+    (table,), chunks = _match_inputs(1, n, k, B, L, seed=n + L)
+    want = np.asarray(match_chunks_pallas(jnp.asarray(table),
+                                          jnp.asarray(chunks), block_b=2,
+                                          interpret=True))
+    got = ops.match_chunks(torch.from_numpy(table), torch.from_numpy(chunks))
+    assert got.dtype == torch.int32 and got.shape == (B, n)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,B,poly", [(1, 1, 0), (9, 40, 1), (87, 33, 2)])
+def test_fingerprint_matches_pallas(n, B, poly):
+    """Packed state vectors, fold weights and limbs made by the port, the
+    fingerprints by both packages' kernels (the reference's through its
+    ``ops.fingerprint`` wrapper, which makes its own weights)."""
+    rng = np.random.default_rng(n * 10 + poly)
+    states = torch.from_numpy(rng.integers(0, n, size=(B, n)).astype(np.int32))
+    words = u32_to_i32(pack_states_u32(states)).contiguous()
+    W = words.shape[1]
+    c = BarrettConstants.cached(nth_poly_low(poly))
+    weights = u32_to_i32(fold_weights_u32(W, c))
+    limbs = u32_to_i32(torch.tensor(limbs_of(c), dtype=torch.int64))
+    got = ops.fingerprint(words, weights, limbs)
+    assert got.dtype == torch.int32 and got.shape == (B, 2)
+    jwords = jnp.asarray(words.numpy().view(np.uint32))
+    want = np.asarray(jops.fingerprint(
+        jwords, JBarrett.cached(c.poly_low), block_b=16, interpret=True))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    want = np.asarray(fingerprint_pallas(
+        jwords, jnp.asarray(weights.numpy().view(np.uint32)),
+        jnp.asarray(limbs.numpy().view(np.uint32)), block_b=16,
+        interpret=True))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
 def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     ops.reset_launches()
     words, weights, limbs = _fp_inputs(2, 3, 2, seed=1)
@@ -91,6 +155,11 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
                        ref.fingerprint_bank(*args))
     tables, chunks = _match_inputs(2, 4, 3, 2, 3, seed=2)
     ops.match_bank_chunks(torch.from_numpy(tables), torch.from_numpy(chunks))
+    t0, c = torch.from_numpy(tables[0]), torch.from_numpy(chunks)
+    assert torch.equal(ops.match_chunks(t0, c), ref.match_chunks(t0, c))
+    f = torch.from_numpy(np.ascontiguousarray(tables[:, :, 0]))
+    assert torch.equal(ops.compose(f, f), ref.compose(f, f))
+    ops.fingerprint(args[0][0], args[1][0], args[2][0])
     assert all(v == 0 for v in ops.launches.values())
     assert set(ops.launches) == set(build.KERNELS)
 
@@ -112,9 +181,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             ops.fingerprint_bank(c[None], c[None], c)
         with pytest.raises(ValueError):
             ops.expand_bank(t, t)
+        with pytest.raises(ValueError):
+            ops.compose(c, c[:, :2].contiguous())
+        with pytest.raises(ValueError):
+            ops.match_chunks(t, c)
+        with pytest.raises(ValueError):
+            ops.fingerprint(c, c, c[0])
+        with pytest.raises(ValueError):
+            ops.fingerprint(c, c[:1].repeat(3, 1)[:, :2].contiguous(),
+                            c[0, :2].contiguous())
+        with pytest.raises(TypeError):
+            ops.compose(c.to(torch.int64), c.to(torch.int64))
+        with pytest.raises(TypeError):
+            ops.match_chunks(t[0], c.to(torch.int16))
     elif case == "contiguity":
         with pytest.raises(ValueError):
             ops.match_bank_chunks(t.transpose(1, 2), c)
+        with pytest.raises(ValueError):
+            ops.compose(c.t(), c.t())
+        with pytest.raises(ValueError):
+            ops.match_chunks(t[0].t(), c)
     elif case == "n_starts":
         for bad in (0, 5):
             with pytest.raises(ValueError):
@@ -130,6 +216,20 @@ def test_build_names_one_library_per_source():
     for n in build.KERNELS:
         assert (build.CSRC / f"{n}.cu").is_file()
         assert build.library_path(n).parent == build.BUILD_DIR
+
+
+def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    """An edited ``.cuh`` header renames every library, so no stale build
+    of a source that includes it is loaded."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in build.KERNELS}
+    header = tmp_path / "clmul.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.KERNELS}
+    assert all(before[n] != after[n] for n in build.KERNELS)
+    assert '#include "clmul.cuh"' in (tmp_path / "fingerprint.cu").read_text()
 
 
 # --------------------------------------------------------------------------
@@ -185,3 +285,32 @@ def test_expand_bank_kernel_rejects_a_table_it_cannot_stage(cuda):
                                     device=cuda),
                         torch.zeros((1, 1, n), dtype=torch.int32, device=cuda))
     assert ops.launches["expand_bank"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(3, 87), (20_000, 87), (7, 9000)])
+def test_compose_kernel_on_card(cuda, B, n):
+    rng = np.random.default_rng(B)
+    f, g = (torch.from_numpy(rng.integers(0, n, size=(B, n)).astype(np.int32))
+            .to(cuda) for _ in range(2))
+    before = ops.launches["compose"]
+    assert torch.equal(ops.compose(f, g), ref.compose(f, g))
+    assert ops.launches["compose"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,L", [(87, 4096, 64), (13, 1001, 7),
+                                   (7184, 300, 48)])
+def test_match_chunks_kernel_on_card(cuda, n, B, L):
+    (table,), chunks = _match_inputs(1, n, 20, B, L, seed=n)
+    t, c = torch.from_numpy(table).to(cuda), torch.from_numpy(chunks).to(cuda)
+    assert torch.equal(ops.match_chunks(t, c), ref.match_chunks(t, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W", [(1000, 7), (81_920, 44)])
+def test_fingerprint_kernel_on_card(cuda, B, W):
+    words, weights, limbs = (_i32(a).to(cuda)
+                             for a in _fp_inputs(1, B, W, seed=B))
+    args = (words[0], weights[0], limbs[0])
+    assert torch.equal(ops.fingerprint(*args), ref.fingerprint(*args))
