@@ -14,7 +14,8 @@ Phases, in order (any failure raises and exits non-zero):
    it, at a ragged edge, and for the two chunk-matching kernels in both
    their shared-memory and their global-memory branch; time each kernel,
    its plain version, and (where one exists) one PyTorch call that computes
-   the same function;
+   the same function — for the kernel and that call both the device time
+   per call and the host's time per call of the Python wrapper;
 3. drive the main path at full size with every launch count at 0: the
    bundled 23-signature PROSITE bank through ``Scanner.compile`` under the
    default plan (SFA budget 512: SFA and enumeration patterns) and under
@@ -33,8 +34,9 @@ Phases, in order (any failure raises and exits non-zero):
    the budget-20000 bank scanner; then read the launch counts and require
    equal results from the host construction, the plain versions, the
    match oracle, the materialised windows and the whole-sequence mapping;
-6. with ``--profile`` only: trace one compile and one scan per budget with
-   ``torch.profiler`` and print where the device time goes.
+6. with ``--profile`` only: trace one compile and one scan per budget and
+   one ``stream`` of the single-pattern phase with ``torch.profiler`` and
+   print where the device time and the host time go.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -102,8 +104,9 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up,
-    from CUDA events around the whole run."""
+    """Mean time of ``fn`` over ``reps`` calls, after a warm-up, from CUDA
+    events around the whole run: device time where the host keeps up with
+    the card, the host's rate of calling where it does not."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -114,6 +117,56 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: Calls per host-time measurement (best of HOST_REPEATS: the host is
+#: shared, and a run interrupted by a neighbour measures the neighbour), and
+#: per device-time measurement.
+HOST_CALLS, HOST_REPEATS, DEVICE_REPS = 200, 3, 100
+#: Spin cycles per µs of host time: the H100's SM clock tops out at
+#: 1.98 GHz, so 4,000 cycles cover at least two µs at any clock.
+SPIN_CYCLES_PER_US = 4000
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """µs per call that the host spends in ``fn``: ``calls`` calls with no
+    synchronize between them (the card works behind), after a warm-up; the
+    best of :data:`HOST_REPEATS` such runs."""
+    fn()
+    best = float("inf")
+    for _ in range(HOST_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
+def device_ms(torch, fn, us_per_call: float, reps: int = DEVICE_REPS
+              ) -> float:
+    """Mean device time of ``fn``: ``reps`` calls queued behind a
+    ``torch.cuda._sleep`` spin that outlasts their enqueue (twice the
+    measured host time), so the card runs them back to back and the events
+    around them see device time, not the host's rate of launching."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * us_per_call * SPIN_CYCLES_PER_US))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timings(torch, fn) -> tuple:
+    """(device ms, host µs per call) of ``fn``."""
+    us = host_us(torch, fn)
+    return device_ms(torch, fn, us), us
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -271,10 +324,82 @@ def kernel_cases(torch, ops, ref, dev):
     return cases
 
 
+def form_cases(torch, ops, ref, dev):
+    """The forms this slice added, at the main path's shapes: expand_bank
+    writing the round's packed words, and compose folding m combines in one
+    launch, stacked or by rows of a mapping stack."""
+    rng = np.random.default_rng(SEED + 1)
+
+    def ids(hi, shape):
+        return torch.from_numpy(
+            rng.integers(0, hi, shape).astype(np.int32)).to(dev)
+
+    cases = []
+    # expand_bank with words: the construction's bucket round, then a
+    # ragged edge (both n odd: the last word's high half is 0).
+    for label, (B, T, n) in (("words, main", (6, TILE, 87)),
+                             ("words, ragged", (3, 37, 13))):
+        W = (n + 1) // 2
+        tables, ft = ids(n, (B, n, K)), ids(n, (B, T, n))
+        masks = torch.from_numpy(rng.integers(
+            0, 1 << 32, (B, W), dtype=np.uint64).astype(np.uint32)
+            .view(np.int32)).to(dev)
+        cases.append(dict(
+            kernel="expand_bank", label=label,
+            shape=f"tables {B}x{n}x{K}, ft {B}x{T}x{n}, words W={W}",
+            run=lambda a=(tables, ft, masks): ops.expand_bank(*a),
+            plain=lambda a=(tables, ft, masks): ref.expand_bank(*a),
+            library=None,      # no one PyTorch call packs
+            nbytes=4 * (B * T * n + B * n * K + B * W + B * T * K * (n + W)),
+            ops=0,
+        ))
+
+    # compose, stacked: one stream piece (the running prefix then 32 block
+    # mappings of the budget-20000 bank), and the budget-512 scan's
+    # enumeration chunk reduce (5 patterns x 65,536 docs, 8 chunks, from the
+    # identity).
+    for label, (B, m, n, first) in (
+            ("fold, stream piece", (23, 32, 87, True)),
+            ("fold, enumeration reduce", (5 * DOCS, N_CHUNKS, 87, False))):
+        f = ids(n, (B, n)) if first else None
+        gs = ids(n, (B, m, n))
+        cases.append(dict(
+            kernel="compose", label=label,
+            shape=f"{'f, ' if first else ''}gs {B}x{m}x{n}",
+            run=lambda a=(f, gs): ops.compose_fold(*a),
+            plain=lambda a=(f, gs): ref.compose_fold(*a),
+            library=None,      # one gather per combine
+            nbytes=4 * B * n * (m + 1 + first),
+            ops=0,
+        ))
+
+    # compose, rows: the budget-20000 SFA scan's chunk fold (23 mapping
+    # stacks of 7,184 x 87, 65,536 docs x 8 chunks; uniform random final
+    # states, so nearly every row is read and the 57 MB stack does not stay
+    # in L2), then a ragged edge.
+    for label, (P, S, n, D, m) in (
+            ("rows, sfa scan 20000", (23, 7184, 87, DOCS, N_CHUNKS)),
+            ("rows, ragged", (3, 13, 13, 1001, 3))):
+        stacks, idx = ids(n, (P, S, n)), ids(S, (P, D, m))
+        rows = int(torch.unique(
+            idx + torch.arange(P, device=dev)[:, None, None] * S).numel())
+        cases.append(dict(
+            kernel="compose", label=label,
+            shape=f"stacks {P}x{S}x{n}, idx {P}x{D}x{m}",
+            run=lambda a=(stacks, idx): ops.compose_fold_rows(*a),
+            plain=lambda a=(stacks, idx): ref.compose_fold_rows(*a),
+            library=None,      # advanced indexing and a gather per chunk
+            nbytes=4 * (P * D * m + P * D * n + rows * n),
+            ops=0,
+        ))
+    return cases
+
+
 def check_expand_limit(torch, ops, dev) -> None:
-    """``expand_bank`` stages each table in shared memory: a table larger
-    than a block may hold must raise ValueError, without a launch."""
-    n = 4096                          # 4096 x 20 x 4 B = 320 KB
+    """``expand_bank`` stages each table in shared memory, rows padded to
+    ``k | 1`` words: a table larger than a block may hold must raise
+    ValueError, without a launch."""
+    n = 2800           # 2800 x 21 x 4 B = 235,200 B; unpadded 224,000 B
     before = ops.launches["expand_bank"]
     try:
         ops.expand_bank(torch.zeros((1, n, K), dtype=torch.int32, device=dev),
@@ -289,34 +414,39 @@ def check_expand_limit(torch, ops, dev) -> None:
           "expand_bank launched on a table it cannot stage")
 
 
-def run_kernel_checks(torch, ops, ref, dev) -> list:
-    check_expand_limit(torch, ops, dev)
+def run_kernel_checks(torch, cases) -> list:
     results = []
-    for c in kernel_cases(torch, ops, ref, dev):
-        got = c["run"]()
-        want = c["plain"]()
+    for c in cases:
+        got, want = c["run"](), c["plain"]()
         torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == want.dtype,
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        check(len(got) == len(want)
+              and all(a.shape == b.shape and a.dtype == b.dtype
+                      for a, b in zip(got, want)),
               f"{c['kernel']} {c['label']}: shape/dtype")
-        err = int((got.to(torch.int64) - want.to(torch.int64))
-                  .abs().max().item()) if got.numel() else 0
+        err = max(int((a.to(torch.int64) - b.to(torch.int64))
+                      .abs().max().item()) if a.numel() else 0
+                  for a, b in zip(got, want))
         check(err == 0, f"{c['kernel']} {c['label']}: differs from its "
                         f"plain version (max abs err {err})")
-        ms = cuda_ms(torch, c["run"])
+        ms, us = timings(torch, c["run"])
         plain_ms = cuda_ms(torch, c["plain"], reps=2)
-        lib_ms = None
+        lib_ms = lib_us = None
         if c["library"] is not None:
-            check(torch.equal(c["library"](), want),
+            check(torch.equal(c["library"](), want[0]),
                   f"{c['kernel']} {c['label']}: library yardstick differs")
-            lib_ms = cuda_ms(torch, c["library"])
+            lib_ms, lib_us = timings(torch, c["library"])
         b_ms, b_by = bound(c["nbytes"], c["ops"])
         r = dict(kernel=c["kernel"], label=c["label"], shape=c["shape"],
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                 bound_by=b_by, library_ms=lib_ms)
+                 max_abs_err=err, ms=ms, host_us=us, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                 library_host_us=lib_us)
         print(f"[kernel] {c['kernel']:18s} {c['label']:32s} {c['shape']:40s}"
-              f" equal  {ms:9.4f} ms  plain {plain_ms:9.3f} ms  bound "
-              f"{b_ms:8.4f} ms ({b_by})"
-              + (f"  library {lib_ms:8.4f} ms" if lib_ms is not None else ""),
+              f" equal  device {ms:9.4f} ms  host {us:8.1f} us  plain "
+              f"{plain_ms:9.3f} ms  bound {b_ms:8.4f} ms ({b_by})"
+              + (f"  library {lib_ms:8.4f} ms, host {lib_us:6.1f} us"
+                 if lib_ms is not None else ""),
               flush=True)
         results.append(r)
         del got, want
@@ -405,7 +535,7 @@ def plain_hits(torch, X, kref, scanner, corpus) -> np.ndarray:
     folds through the plain versions of the kernels, on the card."""
     from repro_torch.core.monoid import function_monoid
 
-    plain_fn = function_monoid(kref.compose)
+    plain_fn = function_monoid(kref)
     hits = np.zeros((scanner.n_patterns, corpus.shape[0]), dtype=bool)
     head = torch.as_tensor(corpus, device=scanner.device)
     for g in scanner.groups:
@@ -413,7 +543,7 @@ def plain_hits(torch, X, kref, scanner, corpus) -> np.ndarray:
             maps = X.bank_doc_mappings_sfa(g.deltas, g.sfa_maps, head,
                                            N_CHUNKS,
                                            match_fn=kref.match_bank_chunks,
-                                           monoid=plain_fn)
+                                           fold_rows=kref.compose_fold_rows)
         else:
             maps = X.bank_doc_mappings(g.tables, head, N_CHUNKS,
                                        match_fn=kref.match_bank_chunks,
@@ -487,7 +617,7 @@ def sfa_fields_equal(a, b) -> bool:
             and np.array_equal(a.fingerprints, b.fingerprints))
 
 
-def single_path(torch, ops, kref, seq) -> dict:
+def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
     from repro_torch.construction import construct_sfa, construct_sfa_sequential
     from repro_torch.core.matching import match_ends_sequential
     from repro_torch.core.monoid import function_monoid
@@ -515,7 +645,9 @@ def single_path(torch, ops, kref, seq) -> dict:
         load_bank(), mode="sfa", sfa_state_budget=SINGLE_BUDGET))
     windows = run("census_windows", lambda: bank.census_windows(
         seq, WINDOW, STRIDE))
+    before = ops.launches["compose"]
     streamed = run("stream", lambda: bank.stream(pieces))
+    stream_composes = ops.launches["compose"] - before
     launches = dict(ops.launches)
     rep = sc.construction_report
     sfa_states = int(sc.groups[0].sfa_states[0])
@@ -537,6 +669,12 @@ def single_path(torch, ops, kref, seq) -> dict:
     for name in SINGLE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the single-pattern path")
+    # A piece is one fold of the chunks' mapping rows and one of the prefix
+    # and the piece's blocks, per group.
+    print(f"[single] compose launches of the stream: {stream_composes} for "
+          f"{STREAM_PIECES} pieces x {len(bank.groups)} group(s)", flush=True)
+    check(stream_composes <= 2 * STREAM_PIECES * len(bank.groups),
+          "the stream launches compose at most twice per piece and group")
 
     # Construction: the auto rule, the reference's round count, and equal
     # SFAs from the one-pattern bank construction and the host engine.
@@ -564,7 +702,7 @@ def single_path(torch, ops, kref, seq) -> dict:
         torch.as_tensor(dfa.accepting, device=dev),
         torch.as_tensor(seq, device=dev), dfa.start, LOCATE_CHUNKS,
         match_fn=kref.match_chunks,
-        monoid=function_monoid(kref.compose)).cpu().numpy())
+        monoid=function_monoid(kref)).cpu().numpy())
     check(flags.shape == (SEQ_LEN,) and np.array_equal(flags, plain),
           "locate equals the plain-version path")
     check(np.array_equal(flags[:ORACLE_LEN],
@@ -595,15 +733,55 @@ def single_path(torch, ops, kref, seq) -> dict:
                 host_construct_s=t_host, plain_locate_s=t_plain_locate,
                 materialised_scan_s=t_naive, whole_mapping_s=t_whole,
                 census=windows.counts.tolist(),
-                match_ends=int(flags.sum()))
+                match_ends=int(flags.sum()), stream_composes=stream_composes,
+                profile_stream=(trace(torch, "single stream",
+                                      lambda: bank.stream(pieces))
+                                if profile else None))
+
+
+def trace(torch, label: str, fn, n_top: int = 12) -> dict:
+    """One traced run of ``fn`` under ``torch.profiler``: its wall, the
+    device's busy time, device time by kernel and host time by operation
+    (self time on the CPU: the launches' own runtime calls, allocations and
+    PyTorch ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in ka if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [dict(name=e.key[:90], calls=e.count,
+                device_ms=e.self_device_time_total / 1e3)
+           for e in kernels[:n_top]]
+    host_top = [dict(name=e.key[:90], calls=e.count,
+                     host_ms=e.self_cpu_time_total / 1e3)
+                for e in host[:n_top]]
+    print(f"[profile] {label}: traced wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({busy_ms / (wall * 1e3):.1%}), "
+          f"{sum(e.count for e in kernels)} kernels", flush=True)
+    for t in top:
+        print(f"[profile]   {t['device_ms']:9.3f} ms {t['calls']:6d}x"
+              f"  {t['name']}", flush=True)
+    for t in host_top:
+        print(f"[profile]   host {t['host_ms']:9.3f} ms {t['calls']:6d}x"
+              f"  {t['name']}", flush=True)
+    return dict(wall_s=wall, device_busy_ms=busy_ms, top=top,
+                host_top=host_top)
 
 
 def profile_main_path(torch, corpus) -> dict:
     """Device-time breakdown of one compile and one scan per budget (a
     separate traced run; the walls above are untraced)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.prosite import load_bank
     from repro_torch.engine import Scanner
 
@@ -616,29 +794,7 @@ def profile_main_path(torch, corpus) -> dict:
         for phase, fn in (("compile", lambda: Scanner.compile(bank,
                                                               **overrides)),
                           ("scan", lambda: sc.scan(corpus))):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            ka = prof.key_averages()
-            kernels = sorted(
-                (e for e in ka if e.device_type == DeviceType.CUDA),
-                key=lambda e: -e.self_device_time_total)
-            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-            top = [dict(name=e.key[:90], calls=e.count,
-                        device_ms=e.self_device_time_total / 1e3)
-                   for e in kernels[:12]]
-            out[f"{name} {phase}"] = dict(wall_s=wall, device_busy_ms=busy_ms,
-                                          top=top)
-            print(f"[profile] {name} {phase}: traced wall {wall * 1e3:.1f} ms,"
-                  f" device busy {busy_ms:.1f} ms "
-                  f"({busy_ms / (wall * 1e3):.1%})", flush=True)
-            for t in top:
-                print(f"[profile]   {t['device_ms']:9.3f} ms {t['calls']:6d}x"
-                      f"  {t['name']}", flush=True)
+            out[f"{name} {phase}"] = trace(torch, f"{name} {phase}", fn)
     return out
 
 
@@ -646,7 +802,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the numbers to this JSON")
     parser.add_argument("--profile", action="store_true",
-                        help="add a traced run: device time by kernel")
+                        help="add traced runs: device time by kernel, host "
+                             "time by operation")
+    parser.add_argument("--baseline", metavar="SRC",
+                        help="only time the six wrappers' phase-2 cases of "
+                             "the port under SRC (another checkout's src/, "
+                             "such as the parent commit's) with this "
+                             "script's timing, print them and stop")
     args = parser.parse_args(argv)
 
     import torch
@@ -656,7 +818,7 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
+    sys.path.insert(0, args.baseline or os.path.join(here, "src"))
     try:
         from repro_torch.kernels import build, ops
         from repro_torch.kernels import ref as kref
@@ -682,14 +844,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    kernel_results = run_kernel_checks(torch, ops, kref, dev)
+    if args.baseline:
+        base = run_kernel_checks(torch, kernel_cases(torch, ops, kref, dev))
+        print(json.dumps({"baseline": args.baseline, "cases": base}),
+              flush=True)
+        return 0
+    check_expand_limit(torch, ops, dev)
+    kernel_results = run_kernel_checks(
+        torch, kernel_cases(torch, ops, kref, dev)
+        + form_cases(torch, ops, kref, dev))
 
     corpus = np.random.default_rng(SEED).integers(
         0, K, (DOCS, DOC_LEN), dtype=np.int32)
     main_res = main_path(torch, ops, corpus)
     twin_res = twins(torch, corpus, main_res)
     seq = np.random.default_rng(SEED).integers(0, K, SEQ_LEN, dtype=np.int32)
-    single_res = single_path(torch, ops, kref, seq)
+    single_res = single_path(torch, ops, kref, seq, args.profile)
     prof_res = profile_main_path(torch, corpus) if args.profile else None
 
     csrc, tpu = "src/repro_torch/kernels/csrc", "src/repro/kernels"
@@ -714,7 +884,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=head["ms"], plain_ms=head["plain_ms"],
+            ms=head["ms"], host_us=head["host_us"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
             cases=[{k: v for k, v in r.items() if k != "kernel"}

@@ -8,12 +8,13 @@ self-loop/identity padding) and **all P frontiers advance together** in one
 bulk-synchronous round over stacked ``(P, capacity, n_max)`` state buffers:
 
   1. each pattern slices a ``tile`` of unprocessed frontier states;
-  2. frontier × alphabet expands in one call over the bank
-     (``kernels/csrc/expand_bank.cu`` on the card);
-  3. candidates are packed to u32 words and fingerprinted with *per-pattern*
-     fold constants (``kernels/csrc/fingerprint_bank.cu`` on the card) — a
-     per-pattern word mask zeroes the padding tail, so the fingerprints (and
-     with them the whole discovery order) equal the unpadded engines';
+  2. frontier × alphabet expands in one call over the bank, which also
+     packs the candidates to u32 words (``kernels/csrc/expand_bank.cu`` on
+     the card) — a per-pattern word mask zeroes the padding tail, so the
+     fingerprints (and with them the whole discovery order) equal the
+     unpadded engines';
+  3. the words are fingerprinted with *per-pattern* fold constants
+     (``kernels/csrc/fingerprint_bank.cu`` on the card);
   4. membership is a sort-merge of (known ∪ candidates) fingerprints per
      pattern, with an exact vector check of every fingerprint match;
   5. per-pattern ``done`` / ``blowup`` / ``collision`` flags come back each
@@ -59,8 +60,6 @@ from ..core.fingerprint import (
     i32_to_u32,
     limbs_of,
     nth_poly_low,
-    pack_states_u32,
-    u32_to_i32,
 )
 from ..core.multipattern import PatternBank
 from ..device import resolve_device
@@ -125,12 +124,14 @@ def _frontier_tile(states, n_states, frontier, active, *, tile: int):
     return ft, row_valid
 
 
-def _gather_expand(tables, ft, backend: str):
+def _gather_expand(tables, ft, word_masks, backend: str):
     """Stage 2: frontier × alphabet expansion, ``next[f, a, q] = δ(f[q], a)``
-    in row-major (frontier, symbol) candidate order -> (B, T·k, n)."""
+    in row-major (frontier, symbol) candidate order, and the candidates
+    packed to masked u32 words, in one call -> (cand (B, T·k, n), words
+    (B, T·k, W) int32 bit patterns)."""
     if backend == "kernel":
-        return kernel_ops.expand_bank(tables, ft)
-    return kernel_ref.expand_bank(tables, ft)
+        return kernel_ops.expand_bank(tables, ft, word_masks)
+    return kernel_ref.expand_bank(tables, ft, word_masks)
 
 
 def _fold_words(words, weights, limbs, backend: str):
@@ -239,9 +240,8 @@ def _bucket_round(tables, states, fp_hi, fp_lo, delta, n_states, frontier,
     fingerprint, sort-merge — stages 1–5 above."""
     ft, row_valid = _frontier_tile(states, n_states, frontier, active,
                                    tile=tile)
-    cand = _gather_expand(tables, ft, expand_backend)            # (B, T·k, n)
+    cand, words = _gather_expand(tables, ft, word_masks, expand_backend)
     cand_valid = row_valid.repeat_interleave(k, dim=1)           # (B, T·k)
-    words = u32_to_i32(pack_states_u32(cand) & word_masks[:, None, :])
     c_hi, c_lo = _fold_words(words, weights, limbs, fp_backend)
     return _merge(states, fp_hi, fp_lo, delta, n_states, frontier, active,
                   cand, cand_valid, c_hi, c_lo, tile=tile, k=k,
@@ -657,13 +657,13 @@ def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
 
     weights_np = np.empty((P, W, 2), dtype=np.int32)
     limbs_np = np.empty((P, 4), dtype=np.int32)
-    masks_np = np.empty((P, W), dtype=np.int64)
+    masks_np = np.empty((P, W), dtype=np.int32)
     fp0_np = np.empty((P, 2), dtype=np.int64)
     for p in range(P):
         c = consts_of(p)
         weights_np[p] = _as_i32(weight_fn(p, 0, W, c))
         limbs_np[p] = _limbs_of(c)
-        masks_np[p] = _word_mask(int(n_true[p]), n)
+        masks_np[p] = _as_i32(_word_mask(int(n_true[p]), n))
         fp0_np[p] = _seed_fingerprint(int(n_true[p]), c.poly_low)
 
     def tensor(a, dtype=None):

@@ -7,9 +7,10 @@ strategies: the sequential ``reduce`` the scan engine folds its chunk
 functions with, and the inclusive and exclusive ``scan``s behind
 ``locate``'s entry states and ``census_windows``' sliding windows.
 
-The function monoid's combine is the ``compose`` kernel
+The function monoid's combine and fold are the ``compose`` kernel
 (``kernels/csrc/compose.cu`` for CUDA tensors, its plain ``torch.gather``
-version for CPU tensors), so every reduce and scan here runs on it.
+versions for CPU tensors), so every reduce and scan here runs on it: a
+scan one launch per log-depth step, a reduce one launch in all.
 """
 
 from __future__ import annotations
@@ -26,49 +27,69 @@ class Monoid:
 
     ``combine(a, b)`` means "a happens first, then b" — order matters for
     function composition. ``identity(like)`` builds the identity element
-    shaped like one element.
+    shaped like one element. ``fold(first, xs)``, where a monoid has one,
+    combines ``first`` (shaped like one element of ``xs``, or ``None`` for
+    the identity) with the elements stacked along ``xs``'s second-to-last
+    axis, in order, at once; :func:`reduce` uses it.
     """
 
     combine: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     identity: Callable[[torch.Tensor], torch.Tensor]
     name: str = "monoid"
+    fold: Callable | None = None
 
 
-def function_monoid(compose=None) -> Monoid:
+def function_monoid(kernels=None) -> Monoid:
     """Elements: int32 mapping vectors ``f`` of shape (..., n);
     ``combine(f, g)[..., q] = g[..., f[..., q]]`` (apply f, then g).
 
-    ``compose`` is the (B, n) x (B, n) -> (B, n) combine the elements are
-    flattened to: ``kernels.ops.compose`` by default; ``chip_smoke.py``
-    passes the plain version to run a path without the kernel.
+    ``kernels`` provides ``compose`` ((B, n) x (B, n) -> (B, n)) and
+    ``compose_fold`` (f (B, n) or None, gs (B, m, n) -> (B, n)), to which
+    the elements are flattened: ``kernels.ops`` by default, the ``compose``
+    kernel in both forms; ``chip_smoke.py`` passes ``kernels.ref`` to run a
+    path on the plain versions.
     """
 
-    def combine(f, g):
-        fn = compose
-        if fn is None:
-            # Imported here: kernels.ops -> kernels.ref -> core.fingerprint
-            # would otherwise import in a cycle with this package.
-            from ..kernels import ops
+    def impl():
+        if kernels is not None:
+            return kernels
+        # Imported here: kernels.ops -> kernels.ref -> core.fingerprint
+        # would otherwise import in a cycle with this package.
+        from ..kernels import ops
 
-            fn = ops.compose
+        return ops
+
+    def combine(f, g):
         f, g = torch.broadcast_tensors(f, g)
         shape = f.shape
         n = shape[-1]
         # reshape materialises broadcast identities and strided slices.
-        out = fn(f.reshape(-1, n).contiguous(), g.reshape(-1, n).contiguous())
+        out = impl().compose(f.reshape(-1, n).contiguous(),
+                             g.reshape(-1, n).contiguous())
         return out.view(shape)
+
+    def fold(first, xs):
+        lead, (m, n) = xs.shape[:-2], xs.shape[-2:]
+        if first is not None:
+            first = first.reshape(-1, n).contiguous()
+        return impl().compose_fold(
+            first, xs.reshape(-1, m, n).contiguous()).view(*lead, n)
 
     def identity(like):
         n = like.shape[-1]
         ident = torch.arange(n, dtype=like.dtype, device=like.device)
         return ident.expand(like.shape)
 
-    return Monoid(combine, identity, "function_composition")
+    return Monoid(combine, identity, "function_composition", fold)
 
 
 def reduce(monoid: Monoid, xs: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Sequential left fold of ``xs`` along ``axis`` (cheap when the chunk
-    count is small) — the same combine order as the reference's scan."""
+    """Left fold of ``xs`` along ``axis`` — the same combine order as the
+    reference's ``lax.scan``: in one ``monoid.fold`` where the monoid has
+    one (the function monoid's is one ``compose`` launch), else a loop of
+    combines (cheap when the chunk count is small)."""
+    if monoid.fold is not None:
+        return monoid.fold(None, torch.movedim(xs, axis, -2))
     moved = torch.movedim(xs, axis, 0)
     out = moved[0]
     for i in range(1, moved.shape[0]):

@@ -11,9 +11,10 @@ Layout conventions (shared with ``core.multipattern.PatternBank``):
 
 The chunk walks go through ``kernels.ops.match_chunks`` (one table) and
 ``kernels.ops.match_bank_chunks`` (a bank) — the CUDA kernels for CUDA
-tensors — and every combine of chunk functions through the ``compose``
-kernel behind ``monoid.function_monoid``. ``match_fn`` / ``monoid`` swap in
-other functions of the same signature, such as the plain versions of
+tensors — and every fold of chunk functions through the ``compose`` kernel:
+behind ``monoid.function_monoid``, or ``kernels.ops.compose_fold_rows`` for
+the SFA path's mapping rows. ``match_fn`` / ``monoid`` / ``fold_rows`` swap
+in other functions of the same signature, such as the plain versions of
 ``kernels.ref``. The rest is plain PyTorch gathers, as the reference left it
 to XLA.
 """
@@ -60,10 +61,10 @@ def match_parallel_sfa(delta_s: torch.Tensor, sfa_mappings: torch.Tensor,
                        n_chunks: int = 8) -> torch.Tensor:
     """Parallel match via the SFA (the paper's method): each chunk walks
     δ_s from SFA state 0 (one lane of ``match_bank_chunks``), its mapping
-    is read off the final state, and the chunks fold -> (n,)."""
-    finals = ops.match_bank_chunks(delta_s[None], _split(symbols, n_chunks),
-                                   1)[0, :, 0]
-    return M.reduce(FN, sfa_mappings[finals.to(torch.int64)], axis=0)
+    is read off the final state, and the chunks fold -> (n,): the
+    one-pattern, one-document :func:`bank_doc_mappings_sfa`."""
+    return bank_doc_mappings_sfa(delta_s[None], sfa_mappings[None],
+                                 symbols[None], n_chunks)[0, 0]
 
 
 def find_matches_parallel(table: torch.Tensor, accepting: torch.Tensor,
@@ -166,25 +167,20 @@ def bank_doc_mappings(tables: torch.Tensor, corpus: torch.Tensor,
 
 def bank_doc_mappings_sfa(deltas: torch.Tensor, sfa_maps: torch.Tensor,
                           corpus: torch.Tensor, n_chunks: int = 8, *,
-                          match_fn=None,
-                          monoid: M.Monoid = FN) -> torch.Tensor:
+                          match_fn=None, fold_rows=None) -> torch.Tensor:
     """SFA-mode final mapping of every (pattern, doc): (P, S, k) deltas,
     (P, S, n) mapping stacks, (D, L) -> (P, D, n). The SFA delta *is* a DFA
     table, so the same kernel walks each chunk from SFA state 0 (one lane,
-    ``n_starts=1``); the mapping stack turns each final SFA state into the
-    chunk's DFA-state function, and the chunks fold with the function
-    monoid — one (P, D, n) mapping at a time, never the whole
-    (P, D·n_chunks, n) stack."""
+    ``n_starts=1``); the chunks' final SFA states index their mapping rows,
+    and one ``compose`` launch folds those rows in chunk order
+    (``fold_rows``, ``kernels.ops.compose_fold_rows`` by default) — no
+    (P, D, n) mapping is gathered per chunk."""
     match_fn = match_fn or ops.match_bank_chunks
+    fold_rows = fold_rows or ops.compose_fold_rows
     D = corpus.shape[0]
     P = deltas.shape[0]
     finals = match_fn(deltas, _chunks_of(corpus, n_chunks), 1)
-    finals = finals.view(P, D, n_chunks).to(torch.int64)
-    rows = torch.arange(P, device=deltas.device)[:, None]
-    out = sfa_maps[rows, finals[:, :, 0]]
-    for c in range(1, n_chunks):
-        out = monoid.combine(out, sfa_maps[rows, finals[:, :, c]])
-    return out
+    return fold_rows(sfa_maps, finals.view(P, D, n_chunks))
 
 
 def match_bank_parallel(tables: torch.Tensor, symbols: torch.Tensor,

@@ -7,9 +7,10 @@ logically concatenated input, buffers them into fixed-shape blocks of
 ``n_chunks * block_len`` symbols, runs the full blocks of each piece through
 the plan's chunk matcher on the scanner's device (``match_bank_chunks`` for
 both scan modes), and folds their transition functions, in order, into a
-running function-monoid prefix that stays on the device (the ``compose``
-kernel). Memory holds one piece plus the ``(P, n)`` prefix, whatever the
-input's length.
+running function-monoid prefix that stays on the device: one ``compose``
+launch per piece and group folds the prefix and all the piece's blocks (the
+SFA path's chunk fold is one more). Memory holds one piece plus the
+``(P, n)`` prefix, whatever the input's length.
 
 ``StreamSession.finish()`` composes the ragged tail symbol by symbol and
 returns a :class:`StreamResult` whose mapping is bit-identical to
@@ -27,7 +28,6 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from ..core import monoid as M
 from . import executors as X
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -123,10 +123,8 @@ class StreamSession:
                                              self.n_chunks)
             else:
                 bm = X.bank_doc_mappings(g.tables, blocks_t, self.n_chunks)
-            # combine(prefix, blocks): apply the prefix first, then the
-            # blocks in order.
-            self._prefix[gi] = X.FN.combine(
-                self._prefix[gi], M.reduce(X.FN, bm, axis=1))
+            # Apply the prefix first, then the blocks in order: one fold.
+            self._prefix[gi] = X.FN.fold(self._prefix[gi], bm)
 
     # -- finishing ----------------------------------------------------------
 

@@ -53,7 +53,7 @@ def bank_from_arrays(tables, accepting, starts, n_states=None, ids=None,
     )
 
 
-def sfa_stack_from_arrays(deltas, maps, sizes, device="cpu") -> tuple:
+def sfa_stack_from_arrays(deltas, maps, sizes, device="cuda") -> tuple:
     """Stacked SFAs — (P, S, k) deltas, (P, S, n) state -> mapping stacks,
     (P,) true state counts — -> (deltas, maps) int32 tensors on ``device``
     plus the sizes as NumPy, the layout the port's SFA executor reads."""

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six CUDA kernels.
+"""Plain PyTorch versions of the six CUDA kernels and their forms.
 
 Each function computes exactly what its kernel computes, on any device. The
 wrappers in :mod:`.ops` call these for CPU tensors; ``chip_smoke.py`` holds
@@ -14,6 +14,7 @@ from ..core.fingerprint import (
     barrett_reduce_u32,
     clmul32,
     i32_to_u32,
+    pack_states_u32,
     u32_to_i32,
     xor_reduce,
 )
@@ -43,18 +44,25 @@ def fingerprint_bank(words: torch.Tensor, weights: torch.Tensor,
     return u32_to_i32(torch.stack([hi, lo], dim=-1))
 
 
-def expand_bank(tables: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
+def expand_bank(tables: torch.Tensor, ft: torch.Tensor,
+                word_masks: torch.Tensor | None = None):
     """Frontier × alphabet expansion over a bank.
 
     tables: (B, n, k) int32; ft: (B, T, n) int32 state ids < n ->
     (B, T·k, n) int32 with ``out[b, t·k + a, q] = tables[b, ft[b, t, q], a]``
-    (row-major (frontier, symbol) candidate order).
+    (row-major (frontier, symbol) candidate order). With ``word_masks``
+    (B, ⌈n/2⌉) int32 -> ``(cand, words)``, words the int32 bit patterns of
+    ``pack_states_u32(cand) & word_masks``.
     """
     B, T, n = ft.shape
     k = tables.shape[-1]
     rows = torch.arange(B, device=ft.device)[:, None, None]
     cand = tables[rows, ft.to(torch.int64)]               # (B, T, n, k)
-    return cand.permute(0, 1, 3, 2).reshape(B, T * k, n)
+    cand = cand.permute(0, 1, 3, 2).reshape(B, T * k, n)
+    if word_masks is None:
+        return cand
+    words = u32_to_i32(pack_states_u32(cand)) & word_masks[:, None, :]
+    return cand, words
 
 
 def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
@@ -82,6 +90,33 @@ def compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Function-monoid combine: f, g (B, n) int32 -> (B, n) int32,
     ``out[b, q] = g[b, f[b, q]]`` (apply f, then g)."""
     return torch.gather(g, 1, f.to(torch.int64))
+
+
+def compose_fold(f: torch.Tensor | None, gs: torch.Tensor) -> torch.Tensor:
+    """A fold of combines: f (B, n) int32 or ``None`` (the identity), gs
+    (B, m, n) int32 -> (B, n), f then ``gs[:, 0]``, …, ``gs[:, m-1]`` —
+    one gather per element of the fold."""
+    B, m, n = gs.shape
+    out = (torch.arange(n, dtype=gs.dtype, device=gs.device).expand(B, n)
+           if f is None else f)
+    for j in range(m):
+        out = compose(out, gs[:, j])
+    return out
+
+
+def compose_fold_rows(stacks: torch.Tensor, idx: torch.Tensor
+                      ) -> torch.Tensor:
+    """A fold of mapping-stack rows: stacks (P, S, n) int32, idx (P, D, m)
+    int32 row ids < S -> (P, D, n), ``stacks[p, idx[p, d, 0]]`` then … then
+    ``stacks[p, idx[p, d, m-1]]``: each row gathered by advanced indexing,
+    then combined."""
+    P = stacks.shape[0]
+    rows = torch.arange(P, device=stacks.device)[:, None]
+    i = idx.to(torch.int64)
+    out = stacks[rows, i[:, :, 0]]
+    for j in range(1, i.shape[2]):
+        out = torch.gather(stacks[rows, i[:, :, j]], 2, out.to(torch.int64))
+    return out
 
 
 def match_chunks(table: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:

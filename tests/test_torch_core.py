@@ -129,13 +129,34 @@ def test_function_monoid_and_reduce_match_reference(seed):
     got = FN.combine(torch.from_numpy(xs[0]), torch.from_numpy(xs[1]))
     assert np.array_equal(got.numpy(), np.asarray(
         JFN.combine(jnp.asarray(xs[0]), jnp.asarray(xs[1]))))
+    # The function monoid's reduce is one fold; a monoid without a fold
+    # (the same combine) loops over its combines.
+    loop = monoid.Monoid(FN.combine, FN.identity)
     for axis in (0, 1):
-        got = monoid.reduce(FN, torch.from_numpy(xs), axis=axis)
         want = jmonoid.reduce(JFN, jnp.asarray(xs), axis=axis)
-        assert np.array_equal(got.numpy(), np.asarray(want))
+        for m in (FN, loop):
+            got = monoid.reduce(m, torch.from_numpy(xs), axis=axis)
+            assert np.array_equal(got.numpy(), np.asarray(want))
     ident = FN.identity(torch.from_numpy(xs[0]))
     assert torch.equal(FN.combine(ident, torch.from_numpy(xs[2])),
                        torch.from_numpy(xs[2]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_function_monoid_fold_matches_reference(seed):
+    """``fold(first, xs)``: the first element then the stacked ones, in one
+    call — the reference's reduce of them all; ``None`` starts from the
+    identity. ``first`` (P, n) and ``xs`` (P, D, n), as in a stream piece."""
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(0, 7, size=(3, 6, 7)).astype(np.int32)
+    FN, JFN = monoid.function_monoid(), jmonoid.function_monoid()
+    want = jmonoid.reduce(JFN, jnp.asarray(xs), axis=1)
+    got = FN.fold(torch.from_numpy(xs[:, 0]), torch.from_numpy(xs[:, 1:]))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    got = FN.fold(None, torch.from_numpy(xs))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(FN.fold(None, torch.from_numpy(xs[0])).numpy(),
+                          np.asarray(jmonoid.reduce(JFN, jnp.asarray(xs[0]))))
 
 
 @pytest.mark.parametrize("n,k,L,seed", [(3, 4, 9, 0), (12, 20, 16, 1)])

@@ -121,7 +121,8 @@ def test_executors_fed_through_interop_match_reference(scanners):
         ct = torch.from_numpy(corpus)
         if g.mode == "sfa":
             deltas, maps, sizes = sfa_stack_from_arrays(
-                np.asarray(g.deltas), np.asarray(g.sfa_maps), g.sfa_states)
+                np.asarray(g.deltas), np.asarray(g.sfa_maps), g.sfa_states,
+                device="cpu")
             assert np.array_equal(sizes, g.sfa_states)
             got = X.bank_doc_mappings_sfa(deltas, maps, ct, N_CHUNKS)
             want = JX.bank_doc_mappings_sfa(g.deltas, g.sfa_maps,
@@ -195,5 +196,9 @@ def test_interop_validates_arrays():
         bank_from_arrays(tables, np.zeros((2, 4), bool), [0, 0])
     with pytest.raises(ValueError):
         sfa_stack_from_arrays(np.zeros((1, 2, 20)), np.zeros((1, 3, 4)), [2])
+    if not torch.cuda.is_available():   # the default device is the card
+        with pytest.raises(RuntimeError, match="cuda"):
+            sfa_stack_from_arrays(np.zeros((1, 2, 20), np.int32),
+                                  np.zeros((1, 2, 4), np.int32), [2])
     bank = bank_from_arrays(tables, np.zeros((2, 3), bool), [0, 0])
     assert bank.n_patterns == 2 and list(bank.n_states) == [3, 3]

@@ -16,7 +16,10 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core import monoid as jmonoid  # noqa: E402
 from repro.core.fingerprint import BarrettConstants as JBarrett  # noqa: E402
+from repro.core.fingerprint import pack_states_u32 as jpack  # noqa: E402
+from repro.engine import executors as JX  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.clmul import fingerprint_bank_pallas  # noqa: E402
 from repro.kernels.clmul import fingerprint_pallas  # noqa: E402
@@ -32,6 +35,7 @@ from repro_torch.core.fingerprint import (  # noqa: E402
     pack_states_u32,
     u32_to_i32,
 )
+from repro_torch.engine import executors as X  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 
@@ -77,6 +81,64 @@ def test_expand_bank_matches_pallas(B, T, n, k):
     got = ops.expand_bank(torch.from_numpy(tables), torch.from_numpy(ft))
     assert got.shape == (B, T * k, n)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,T,n,k", [(1, 1, 1, 3), (2, 4, 6, 20),
+                                     (3, 6, 13, 7), (2, 3, 87, 20)])
+def test_expand_bank_words_match_reference(B, T, n, k):
+    """The packed, masked words beside the candidates, against the
+    reference's ``pack_states_u32(cand) & word_masks`` (odd and even n)."""
+    rng = np.random.default_rng(B * 100 + n)
+    tables = rng.integers(0, n, size=(B, n, k)).astype(np.int32)
+    ft = rng.integers(0, n, size=(B, T, n)).astype(np.int32)
+    masks = _u32(rng, (B, (n + 1) // 2))
+    cand, words = ops.expand_bank(torch.from_numpy(tables),
+                                  torch.from_numpy(ft), _i32(masks))
+    want = np.asarray(expand_bank_pallas(jnp.asarray(tables), jnp.asarray(ft),
+                                         interpret=True))
+    assert np.array_equal(cand.numpy(), want)
+    assert words.dtype == torch.int32 and words.shape == (B, T * k,
+                                                          (n + 1) // 2)
+    want_words = np.asarray(jpack(jnp.asarray(want))) & masks[:, None, :]
+    assert np.array_equal(words.numpy().view(np.uint32), want_words)
+
+
+@pytest.mark.parametrize("m", [1, 2, 9])
+def test_compose_fold_matches_reference_reduce(m):
+    """The stacked fold, with a first element and from the identity,
+    against ``repro.core.monoid.reduce`` of the function monoid."""
+    rng = np.random.default_rng(m)
+    B, n = 5, 11
+    xs = rng.integers(0, n, size=(B, m + 1, n)).astype(np.int32)
+    JFN = jmonoid.function_monoid()
+    want = np.asarray(jmonoid.reduce(JFN, jnp.asarray(xs), axis=1))
+    got = ops.compose_fold(torch.from_numpy(xs[:, 0].copy()),
+                           torch.from_numpy(xs[:, 1:].copy()))
+    assert got.dtype == torch.int32 and got.shape == (B, n)
+    assert np.array_equal(got.numpy(), want)
+    want = np.asarray(jmonoid.reduce(JFN, jnp.asarray(xs[:, 1:]), axis=1))
+    got = ops.compose_fold(None, torch.from_numpy(xs[:, 1:].copy()))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("P,S,n,D,n_chunks", [(1, 4, 3, 2, 1), (2, 9, 6, 3, 4),
+                                              (3, 40, 13, 5, 8)])
+def test_compose_fold_rows_matches_reference_sfa_fold(P, S, n, D, n_chunks):
+    """The rows fold of the chunks' final SFA states, against the
+    reference's ``bank_doc_mappings_sfa`` on the same stacks."""
+    rng = np.random.default_rng(S)
+    k, L = 20, 4 * n_chunks
+    deltas = rng.integers(0, S, size=(P, S, k)).astype(np.int32)
+    maps = rng.integers(0, n, size=(P, S, n)).astype(np.int32)
+    corpus = rng.integers(0, k, size=(D, L)).astype(np.int32)
+    want = np.asarray(JX.bank_doc_mappings_sfa(
+        jnp.asarray(deltas), jnp.asarray(maps), jnp.asarray(corpus), n_chunks))
+    d, mp, c = (torch.from_numpy(a) for a in (deltas, maps, corpus))
+    finals = ops.match_bank_chunks(d, c.view(D * n_chunks, -1), 1)
+    got = ops.compose_fold_rows(mp, finals.view(P, D, n_chunks))
+    assert got.dtype == torch.int32 and got.shape == (P, D, n)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(X.bank_doc_mappings_sfa(d, mp, c, n_chunks), got)
 
 
 @pytest.mark.parametrize("P,n,k,B,L", [(1, 3, 4, 2, 5), (2, 6, 5, 3, 8),
@@ -159,13 +221,23 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     assert torch.equal(ops.match_chunks(t0, c), ref.match_chunks(t0, c))
     f = torch.from_numpy(np.ascontiguousarray(tables[:, :, 0]))
     assert torch.equal(ops.compose(f, f), ref.compose(f, f))
+    gs = torch.from_numpy(np.ascontiguousarray(tables.transpose(0, 2, 1)))
+    assert torch.equal(ops.compose_fold(f, gs), ref.compose_fold(f, gs))
+    assert torch.equal(ops.compose_fold(None, gs), ref.compose_fold(None, gs))
+    idx = torch.from_numpy(chunks[None].repeat(2, 0) % 4)
+    t = torch.from_numpy(tables)
+    assert torch.equal(ops.compose_fold_rows(t, idx),
+                       ref.compose_fold_rows(t, idx))
+    masks = f[:, :2].contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.expand_bank(t, gs, masks), ref.expand_bank(t, gs, masks)))
     ops.fingerprint(args[0][0], args[1][0], args[2][0])
     assert all(v == 0 for v in ops.launches.values())
     assert set(ops.launches) == set(build.KERNELS)
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity",
-                                  "n_starts", "device"])
+                                  "n_starts", "device", "folds and words"])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
     tables, chunks = _match_inputs(2, 4, 3, 2, 3, seed=3)
     t, c = torch.from_numpy(tables), torch.from_numpy(chunks)
@@ -205,9 +277,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         for bad in (0, 5):
             with pytest.raises(ValueError):
                 ops.match_bank_chunks(t, c, bad)
-    else:
+    elif case == "device":
         with pytest.raises(ValueError):
             ops.match_bank_chunks(t.to("meta"), c.to("meta"))
+        with pytest.raises(ValueError):
+            ops.compose_fold(None, t.to("meta"))
+    else:
+        gs = t.transpose(1, 2).contiguous()                  # (2, 3, 4)
+        f = gs[:, 0].contiguous()                            # (2, 4)
+        idx = c[:, None].repeat(1, 5, 1) % 4                 # (2, 5, 3)
+        masks = c[:, :2].contiguous()                        # (2, W = 2)
+        with pytest.raises(TypeError):                       # dtype
+            ops.compose_fold(f, gs.to(torch.int64))
+        with pytest.raises(TypeError):
+            ops.compose_fold(f.to(torch.int16), gs)
+        with pytest.raises(TypeError):                       # idx not int32
+            ops.compose_fold_rows(t, idx.to(torch.int64))
+        with pytest.raises(TypeError):
+            ops.expand_bank(t, gs, masks.to(torch.int64))
+        with pytest.raises(ValueError):                      # rank
+            ops.compose_fold(f, f)
+        with pytest.raises(ValueError):
+            ops.compose_fold_rows(t[0], idx)
+        with pytest.raises(ValueError):
+            ops.compose_fold_rows(t, idx[0])
+        with pytest.raises(ValueError):                      # mismatched m
+            ops.compose_fold(None, gs[:, :0].contiguous())
+        with pytest.raises(ValueError):
+            ops.compose_fold_rows(t, idx[:, :, :0].contiguous())
+        with pytest.raises(ValueError):                      # f vs gs
+            ops.compose_fold(f[:, :3].contiguous(), gs)
+        with pytest.raises(ValueError):
+            ops.compose_fold(f[:1].contiguous(), gs)
+        with pytest.raises(ValueError):                      # idx vs stacks
+            ops.compose_fold_rows(t, idx[:1].contiguous())
+        with pytest.raises(ValueError):                      # word masks
+            ops.expand_bank(t, gs, masks[:, :1].contiguous())
+        with pytest.raises(ValueError):                      # contiguity
+            ops.compose_fold(None, gs.transpose(1, 2))
+        with pytest.raises(ValueError):
+            ops.compose_fold_rows(t, idx.transpose(1, 2))
 
 
 def test_build_names_one_library_per_source():
@@ -277,8 +386,24 @@ def test_match_bank_chunks_kernel_on_card(cuda, n, n_starts):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,n", [(3, 37, 13), (2, 5, 6), (6, 128, 87)])
+def test_expand_bank_words_kernel_on_card(cuda, B, T, n):
+    rng = np.random.default_rng(T)
+    tables, ft = (torch.from_numpy(rng.integers(0, n, size=s).astype(np.int32))
+                  .to(cuda) for s in ((B, n, 20), (B, T, n)))
+    masks = _i32(_u32(rng, (B, (n + 1) // 2))).to(cuda)
+    before = ops.launches["expand_bank"]
+    got = ops.expand_bank(tables, ft, masks)
+    assert ops.launches["expand_bank"] == before + 1
+    want = ref.expand_bank(tables, ft, masks)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_expand_bank_kernel_rejects_a_table_it_cannot_stage(cuda):
-    n = 4096                     # a (4096, 20) table is 320 KB
+    # Rows padded to k | 1 = 21 words: (2800, 20) is 235,200 bytes staged,
+    # over the H100's 232,448 (unpadded it would have been 224,000).
+    n = 2800
     before = ops.launches["expand_bank"]
     with pytest.raises(ValueError, match="shared memory"):
         ops.expand_bank(torch.zeros((1, n, 20), dtype=torch.int32,
@@ -295,6 +420,36 @@ def test_compose_kernel_on_card(cuda, B, n):
             .to(cuda) for _ in range(2))
     before = ops.launches["compose"]
     assert torch.equal(ops.compose(f, g), ref.compose(f, g))
+    assert ops.launches["compose"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,n,first", [(23, 32, 87, True),
+                                         (1001, 9, 13, False),
+                                         (7, 2, 9000, True)])
+def test_compose_fold_kernel_on_card(cuda, B, m, n, first):
+    rng = np.random.default_rng(B)
+    gs = torch.from_numpy(
+        rng.integers(0, n, size=(B, m, n)).astype(np.int32)).to(cuda)
+    f = (torch.from_numpy(rng.integers(0, n, size=(B, n)).astype(np.int32))
+         .to(cuda) if first else None)
+    before = ops.launches["compose"]
+    assert torch.equal(ops.compose_fold(f, gs), ref.compose_fold(f, gs))
+    assert ops.launches["compose"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,S,n,D,m", [(23, 7184, 87, 300, 8),
+                                       (3, 5, 13, 1001, 1), (2, 3, 700, 9, 3)])
+def test_compose_fold_rows_kernel_on_card(cuda, P, S, n, D, m):
+    rng = np.random.default_rng(D)
+    stacks = torch.from_numpy(
+        rng.integers(0, n, size=(P, S, n)).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(
+        rng.integers(0, S, size=(P, D, m)).astype(np.int32)).to(cuda)
+    before = ops.launches["compose"]
+    assert torch.equal(ops.compose_fold_rows(stacks, idx),
+                       ref.compose_fold_rows(stacks, idx))
     assert ops.launches["compose"] == before + 1
 
 
