@@ -128,45 +128,62 @@ HOST_CALLS, HOST_REPEATS, DEVICE_REPS = 200, 3, 100
 SPIN_CYCLES_PER_US = 4000
 
 
-def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
-    """µs per call that the host spends in ``fn``: ``calls`` calls with no
-    synchronize between them (the card works behind), after a warm-up; the
-    best of :data:`HOST_REPEATS` such runs."""
+def host_us(torch, fn, calls: int = HOST_CALLS) -> tuple:
+    """(best, worst) µs per call that the host spends in ``fn``: ``calls``
+    calls with no synchronize between them (the card works behind), after a
+    warm-up, in each of :data:`HOST_REPEATS` runs."""
     fn()
-    best = float("inf")
+    runs = []
     for _ in range(HOST_REPEATS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
-        best = min(best, time.perf_counter() - t0)
+        runs.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return best / calls * 1e6
+    return min(runs) / calls * 1e6, max(runs) / calls * 1e6
+
+
+#: Runs of :func:`device_ms`, the spin twice as long each time, before it
+#: gives up.
+SPIN_TRIES = 5
 
 
 def device_ms(torch, fn, us_per_call: float, reps: int = DEVICE_REPS
               ) -> float:
     """Mean device time of ``fn``: ``reps`` calls queued behind a
-    ``torch.cuda._sleep`` spin that outlasts their enqueue (twice the
-    measured host time), so the card runs them back to back and the events
-    around them see device time, not the host's rate of launching."""
+    ``torch.cuda._sleep`` spin, so the card runs them back to back and the
+    events around them see device time, not the host's rate of launching.
+    The spin is sized at twice ``us_per_call`` (the slowest host time
+    measured), and the start event, recorded after the spin, is queried
+    once the last call is queued: if the card has passed it, the spin ended
+    before the queue was full, and the run is repeated with a spin twice as
+    long."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(reps * us_per_call * SPIN_CYCLES_PER_US))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = int(2 * reps * us_per_call * SPIN_CYCLES_PER_US)
+    for _ in range(SPIN_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"check failed: {reps} calls were not queued within "
+                       f"a spin of {cycles // 2} cycles")
 
 
 def timings(torch, fn) -> tuple:
-    """(device ms, host µs per call) of ``fn``."""
-    us = host_us(torch, fn)
-    return device_ms(torch, fn, us), us
+    """(device ms, host µs per call) of ``fn``: the best host run, and a
+    spin sized from the slowest."""
+    best, worst = host_us(torch, fn)
+    return device_ms(torch, fn, worst), best
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -804,11 +821,6 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="add traced runs: device time by kernel, host "
                              "time by operation")
-    parser.add_argument("--baseline", metavar="SRC",
-                        help="only time the six wrappers' phase-2 cases of "
-                             "the port under SRC (another checkout's src/, "
-                             "such as the parent commit's) with this "
-                             "script's timing, print them and stop")
     args = parser.parse_args(argv)
 
     import torch
@@ -818,7 +830,7 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, args.baseline or os.path.join(here, "src"))
+    sys.path.insert(0, os.path.join(here, "src"))
     try:
         from repro_torch.kernels import build, ops
         from repro_torch.kernels import ref as kref
@@ -844,11 +856,6 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    if args.baseline:
-        base = run_kernel_checks(torch, kernel_cases(torch, ops, kref, dev))
-        print(json.dumps({"baseline": args.baseline, "cases": base}),
-              flush=True)
-        return 0
     check_expand_limit(torch, ops, dev)
     kernel_results = run_kernel_checks(
         torch, kernel_cases(torch, ops, kref, dev)

@@ -85,16 +85,9 @@ def function_monoid(kernels=None) -> Monoid:
 
 def reduce(monoid: Monoid, xs: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Left fold of ``xs`` along ``axis`` — the same combine order as the
-    reference's ``lax.scan``: in one ``monoid.fold`` where the monoid has
-    one (the function monoid's is one ``compose`` launch), else a loop of
-    combines (cheap when the chunk count is small)."""
-    if monoid.fold is not None:
-        return monoid.fold(None, torch.movedim(xs, axis, -2))
-    moved = torch.movedim(xs, axis, 0)
-    out = moved[0]
-    for i in range(1, moved.shape[0]):
-        out = monoid.combine(out, moved[i])
-    return out
+    reference's ``lax.scan`` — in one ``monoid.fold`` (the function
+    monoid's is one ``compose`` launch). The monoid must have a fold."""
+    return monoid.fold(None, torch.movedim(xs, axis, -2))
 
 
 def scan(monoid: Monoid, xs: torch.Tensor, axis: int = 0,

@@ -86,21 +86,20 @@ def _bind(entry: str) -> tuple:
 
 
 def _check(name: str, args: tuple, *tensors) -> int:
-    """Every tensor int32, contiguous and on one device -> that device's
-    CUDA index, or -1 on the CPU. ``args`` names the tensors in order."""
+    """Every tensor int32, contiguous and on one device, the CPU or a CUDA
+    device -> that device's CUDA index, or -1 on the CPU. ``args`` names the
+    tensors in order."""
     dev = tensors[0].get_device()
     for arg, t in zip(args, tensors):
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: tensors on several devices "
+                             f"{[x.device for x in tensors]}")
+        if not (t.is_cuda if dev >= 0 else t.is_cpu):
+            raise ValueError(f"{name}: unsupported device {t.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.get_device() != dev:
-            raise ValueError(f"{name}: tensors on several devices "
-                             f"{[x.device for x in tensors]}")
-    if dev < 0:
-        for t in tensors:
-            if t.device.type != "cpu":
-                raise ValueError(f"{name}: unsupported device {t.device}")
     return dev
 
 
