@@ -11,8 +11,11 @@ Phases, in order (any failure raises and exits non-zero):
    nvcc (one process per source, in parallel) and print the build time;
 2. hold each kernel equal to its plain PyTorch version on the card, on
    random inputs from a numpy seed: at the largest shapes its path gives
-   it, at a ragged edge, and for the two chunk-matching kernels in both
-   their shared-memory and their global-memory branch; time each kernel,
+   it and at a ragged edge; the two chunk walks also on tables past their
+   shared-memory budget and on the bundled bank's own tables (compiled
+   once here: budgets 512 and 20000, and a stream piece's shape), each
+   walk's launch plan held to the branch its case names and its share of
+   lookups on staged rows printed; time each kernel,
    its plain version, and (where one exists) one PyTorch call that computes
    the same function — for the kernel and that call both the device time
    per call and the host's time per call of the Python wrapper;
@@ -49,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -198,7 +202,7 @@ def bound(nbytes: float, ops: float) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def kernel_cases(torch, ops, ref, dev):
+def kernel_cases(torch, ops, ref, dev, real):
     rng = np.random.default_rng(SEED)
 
     def i32(a):
@@ -290,54 +294,130 @@ def kernel_cases(torch, ops, ref, dev):
             ops=0,
         ))
 
-    # match_chunks: locate's first pass (PS00010's 87-state table, 4,096
-    # chunks of 1,024 residues, all 87 lanes) in shared memory, then the
-    # global branch and a ragged edge.
-    for label, (n, B, L) in (
-            ("locate (smem)", (87, LOCATE_CHUNKS, SEQ_LEN // LOCATE_CHUNKS)),
-            ("global branch", (7184, 300, 48)),
-            ("ragged (smem)", (13, 1001, 7))):
-        table, ch = ids(n, (n, K)), ids(K, (B, L))
-        smem = n * (K | 1) * 4 <= ops.MATCH_SMEM_TABLE_MAX
-        check(smem == ("smem" in label), f"branch of case {label!r}")
-        cases.append(dict(
-            kernel="match_chunks", label=label,
-            shape=f"table {n}x{K}, chunks {B}x{L}",
-            run=lambda a=(table, ch): ops.match_chunks(*a),
-            plain=lambda a=(table, ch): ref.match_chunks(*a),
-            library=None,
-            nbytes=4 * (n * K + B * L + B * n),
-            ops=2 * B * n * L,
-        ))
+    return cases + match_cases(torch, ops, ref, dev, ids, real)
 
-    # match_bank_chunks at the scan's shapes (65,536 docs x 8 chunks of 48
-    # symbols): the SFA group (18 deltas of <= 272 rows, one lane) and the
-    # enumeration group (5 tables of 87 states, all lanes) at budget 512 —
-    # both in shared memory — and all 23 SFA deltas at budget 20000 (7,184
-    # rows, global memory, one lane); then the global branch at n_starts = n
-    # on fewer chunks, and a ragged edge.
-    chunks = ids(K, (DOCS * N_CHUNKS, DOC_LEN // N_CHUNKS))
-    few = chunks[:4096].contiguous()
-    for label, (P, n, ch, ns) in (
-            ("enumeration, budget 512 (smem)", (5, 87, chunks, 87)),
-            ("sfa, budget 512 (smem)", (18, 272, chunks, 1)),
-            ("sfa, budget 20000 (global)", (23, 7184, chunks, 1)),
-            ("global branch, n_starts = n", (2, 7184, few, 7184)),
-            ("ragged, smem, n_starts = n", (3, 13, ids(K, (1001, 7)), 13)),
-            ("ragged, smem, n_starts = 1", (3, 13, ids(K, (1001, 7)), 1))):
-        tables = ids(n, (P, n, K))
+
+def bundled_tables(torch) -> dict:
+    """The bundled bank's scan tables on the card, compiled once: the
+    budget-512 enumeration tables and SFA deltas, the budget-20000 deltas,
+    and the stream's chunk shape (``n_chunks``, ``block_len``) of the
+    budget-20000 scanner."""
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import Scanner
+
+    bank = load_bank()
+    s512 = Scanner.compile(bank)
+    s20k = Scanner.compile(bank, mode="sfa", sfa_state_budget=20_000)
+    g512 = {g.mode: g for g in s512.groups}
+    sess = s20k.open_stream()
+    return dict(enumeration=g512["enumeration"].tables,
+                sfa512=g512["sfa"].deltas, sfa20k=s20k.groups[0].deltas,
+                stream=(sess.n_chunks, sess.block_len))
+
+
+def staged_share(torch, tables, chunks, n_starts: int, rows: int) -> float:
+    """Share of a walk's lookups that fall on table rows < ``rows`` (the
+    rows the kernel stages in shared memory), walked on the card."""
+    P = tables.shape[0]
+    B, L = chunks.shape
+    if not rows:
+        return 0.0
+    pr = torch.arange(P, device=tables.device)[:, None, None]
+    v = torch.arange(n_starts, device=tables.device).expand(P, B, n_starts)
+    syms = chunks.to(torch.int64)
+    staged = torch.zeros((), dtype=torch.int64, device=tables.device)
+    for t in range(L):
+        staged += (v < rows).sum()
+        v = tables[pr, v, syms[None, :, t, None]].to(torch.int64)
+    return int(staged) / (P * B * n_starts * L)
+
+
+def match_cases(torch, ops, ref, dev, ids, real, check_plan: bool = True):
+    """The two chunk walks at the main path's shapes: on random tables
+    (``ids``), and on the bundled bank's tables (``real``, from
+    :func:`bundled_tables`). Each case names the branch its plan must take
+    (``smem``: the whole table staged; ``smem + L2``: rows >= R read from
+    global memory); with ``check_plan`` the wrapper's plan is held to it
+    and the share of lookups on staged rows is printed."""
+    cases = []
+
+    def add(kernel, label, branch, tables, ch, ns, run, plain):
+        P, n, _ = tables.shape
         B, L = ch.shape
-        smem = n * K * 4 <= ops.MATCH_SMEM_TABLE_MAX
-        check(smem == ("smem" in label), f"branch of case {label!r}")
+        if check_plan:
+            plan = ops.match_plan_of(tables, ch, ns)
+            check(plan.branch == branch,
+                  f"{kernel} {label}: plan branch {plan.branch!r}, "
+                  f"expected {branch!r}")
+            share = (1.0 if not plan.global_rows else
+                     staged_share(torch, tables, ch, ns, plan.rows))
+            print(f"[plan] {kernel:18s} {label:40s} {plan.branch:9s} "
+                  f"R = {plan.rows}/{n} rows, {plan.threads} threads x "
+                  f"{plan.chains} chains, {plan.patterns} tables a block, "
+                  f"{'start' if plan.one_chunk else 'chunk'}-major, "
+                  f"{plan.smem} B shared; lookups on staged rows "
+                  f"{share:.6f}", flush=True)
         cases.append(dict(
-            kernel="match_bank_chunks", label=label,
+            kernel=kernel, label=label,
             shape=f"tables {P}x{n}x{K}, chunks {B}x{L}, n_starts {ns}",
-            run=lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
-            plain=lambda a=(tables, ch, ns): ref.match_bank_chunks(*a),
-            library=None,
+            run=run, plain=plain, library=None, walk=(tables, ch, ns),
             nbytes=4 * (P * n * K + B * L + P * B * ns),
             ops=2 * P * B * ns * L,
         ))
+
+    # match_chunks: locate's first pass (PS00010's 87-state table, 4,096
+    # chunks of 1,024 residues, all 87 lanes), then a table past the
+    # shared-memory budget and a ragged edge.
+    for label, (n, B, L), branch in (
+            ("locate", (87, LOCATE_CHUNKS, SEQ_LEN // LOCATE_CHUNKS), "smem"),
+            ("7,184 states", (7184, 300, 48), "smem + L2"),
+            ("ragged", (13, 1001, 7), "smem")):
+        table, ch = ids(n, (n, K)), ids(K, (B, L))
+        add("match_chunks", label, branch, table[None], ch, n,
+            lambda a=(table, ch): ops.match_chunks(*a),
+            lambda a=(table, ch): ref.match_chunks(*a))
+
+    # match_bank_chunks at the scan's shapes (65,536 docs x 8 chunks of 48
+    # symbols), on random tables: the SFA group (18 deltas of <= 272 rows,
+    # one lane) and the enumeration group (5 tables of 87 states, all lanes)
+    # at budget 512, and all 23 SFA deltas at budget 20000 (7,184 rows, one
+    # lane; uniform random tables visit every row alike, the design's worst
+    # case); then n_starts = n past the budget on fewer chunks, and ragged
+    # edges.
+    chunks = ids(K, (DOCS * N_CHUNKS, DOC_LEN // N_CHUNKS))
+    few = chunks[:4096].contiguous()
+    for label, (P, n, ch, ns), branch in (
+            ("enumeration, budget 512", (5, 87, chunks, 87), "smem"),
+            ("sfa, budget 512", (18, 272, chunks, 1), "smem"),
+            ("sfa, budget 20000, random rows", (23, 7184, chunks, 1),
+             "smem + L2"),
+            ("n_starts = n, 7,184 states", (2, 7184, few, 7184), "smem + L2"),
+            ("ragged, n_starts = n", (3, 13, ids(K, (1001, 7)), 13), "smem"),
+            ("ragged, n_starts = 1", (3, 13, ids(K, (1001, 7)), 1), "smem")):
+        tables = ids(n, (P, n, K))
+        add("match_bank_chunks", label, branch, tables, ch, ns,
+            lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
+            lambda a=(tables, ch, ns): ref.match_bank_chunks(*a))
+
+    # The bundled bank's own tables on the same chunks (the walks stay near
+    # state 0), and one stream piece of the single phase: 2^22 / 64
+    # residues in blocks of n_chunks x block_len through the budget-20000
+    # deltas — a small launch.
+    n_chunks, block_len = real["stream"]
+    piece = ids(K, (SEQ_LEN // STREAM_PIECES // (n_chunks * block_len)
+                    * n_chunks, block_len))
+    for label, (tables, ch, ns), branch in (
+            ("enumeration, budget 512, bundled",
+             (real["enumeration"], chunks, real["enumeration"].shape[1]),
+             "smem"),
+            ("sfa, budget 512, bundled", (real["sfa512"], chunks, 1), "smem"),
+            ("sfa, budget 20000, bundled", (real["sfa20k"], chunks, 1),
+             "smem + L2"),
+            ("stream piece, budget 20000, bundled",
+             (real["sfa20k"], piece, 1), "smem + L2")):
+        add("match_bank_chunks", label, branch, tables, ch, ns,
+            lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
+            lambda a=(tables, ch, ns): ref.match_bank_chunks(*a))
     return cases
 
 
@@ -852,14 +932,18 @@ def main(argv=None) -> int:
     print(f"[build] {len(logs)} kernel libraries built in {t_build:.2f} s "
           f"(nvcc for sm_90a, in parallel)", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = re.findall(r"[1-9]\d* bytes spill stores", log)
+        print(f"[build] {name}: {len(regs)} kernels, {min(regs, default=0)}"
+              f"-{max(regs, default=0)} registers a thread, "
+              f"{len(spills)} spilling", flush=True)
 
     check_expand_limit(torch, ops, dev)
+    real = bundled_tables(torch)
     kernel_results = run_kernel_checks(
-        torch, kernel_cases(torch, ops, kref, dev)
+        torch, kernel_cases(torch, ops, kref, dev, real)
         + form_cases(torch, ops, kref, dev))
+    del real
 
     corpus = np.random.default_rng(SEED).integers(
         0, K, (DOCS, DOC_LEN), dtype=np.int32)

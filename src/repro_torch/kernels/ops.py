@@ -11,7 +11,8 @@ kernel and share its count).
 The launch path is paid on every call, and the stream and the chunk folds
 make thousands of small ones, so it keeps to a few microseconds of host
 time: each C entry point is bound once and cached, the shared-memory limit
-is read once per device, the checks build no containers, the device guard
+and the SM count are read once per device, a chunk walk's launch plan is
+made once per shape, the checks build no containers, the device guard
 is entered only when the tensors are not on the current device, and the
 stream is PyTorch's raw current-stream handle.
 
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,12 +38,25 @@ from . import build, ref
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {name: 0 for name in build.KERNELS}
 
-#: Tables of at most this many bytes are staged in shared memory by
-#: ``match_bank_chunks`` and ``match_chunks`` (two blocks per SM); larger
-#: ones are read from global memory. The wrappers pass their choice to the
-#: launch, so this is the one place the threshold lives. ``match_chunks``
-#: counts its padded rows (``k | 1`` words).
-MATCH_SMEM_TABLE_MAX = 96 * 1024
+#: Shared memory a block of ``match_bank_chunks`` / ``match_chunks`` fills
+#: with table rows (padded to ``k | 1`` words) and its warps' symbol slabs:
+#: 113 KB, so two blocks fit an SM of an H100 (228 KB an SM, 1 KB of it
+#: reserved a block). A table whose rows do not fit beside the slabs stages
+#: its first rows and reads the rest from global memory (L2).
+#: :func:`match_plan` applies it; this is the one place it lives.
+MATCH_SMEM_BLOCK = 113 * 1024
+#: Threads a block, and symbol words a warp's slab buffer holds at most
+#: (8 KB), of the chunk walks.
+MATCH_THREADS, MATCH_WARP_WORDS = 512, 2048
+#: Chunk-major walks take fewer chains a thread (more warps) until their
+#: warps fill the card to this many an SM.
+MATCH_WARPS_PER_SM = 8
+#: Rows each table keeps at least where chunk-major walks over tables too
+#: large to stage share a block among tables: re-reading the int32 chunks
+#: once a table costs more than sending the walks that leave the first rows
+#: to L2 (the bundled bank's SFA walks from state 0 stay on rows < 128 for
+#: 90 % of their lookups).
+MATCH_MIN_ROWS = 32
 
 _VP, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> (kernel library, argument types before the stream).
@@ -52,12 +67,12 @@ _ENTRY_POINTS = {
                            [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT]),
     "match_bank_chunks_launch": ("match_bank_chunks",
                                  [_VP, _VP, _VP, _INT, _INT, _INT, _LONG,
-                                  _INT, _INT, _INT]),
+                                  _INT, _INT, _VP]),
     "compose_launch": ("compose", [_VP, _VP, _VP, _LONG, _INT, _INT]),
     "compose_rows_launch": ("compose",
                             [_VP, _VP, _VP, _INT, _INT, _INT, _LONG, _INT]),
     "match_chunks_launch": ("match_chunks",
-                            [_VP, _VP, _VP, _INT, _INT, _LONG, _INT, _INT]),
+                            [_VP, _VP, _VP, _INT, _INT, _LONG, _INT, _VP]),
     "fingerprint_launch": ("fingerprint", [_VP, _VP, _VP, _VP, _LONG, _INT]),
 }
 
@@ -122,6 +137,149 @@ def _launch(entry: str, dev: int, *args) -> None:
 def _smem_limit(dev: int) -> int:
     """Shared memory a block of CUDA device ``dev`` may opt in to, bytes."""
     return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+@functools.cache
+def _sm_count(dev: int) -> int:
+    """Streaming multiprocessors of CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+class MatchPlan(NamedTuple):
+    """How a chunk walk (``match_bank_chunks``, ``match_chunks``) lays out
+    its launch; the fields up to ``smem`` in the order of
+    ``csrc/match.cuh``'s ``Field``."""
+
+    threads: int          # a block
+    chains: int           # independent walks a thread, 1 .. 3
+    one_chunk: bool       # start-major (a warp takes one chunk's starts)
+    sym_per_word: int     # 4: byte symbols (k <= 256); 1: int32
+    chunks_per_warp: int  # chunks of a warp task
+    lanes_per_chunk: int  # start states a warp task takes of a chunk
+    groups: int           # warp tasks a chunk
+    slab_words: int       # symbol words of each chunk staged at a time
+    stride: int           # words between slab rows, chunks_per_warp | 1
+    rows: int             # table rows staged in shared memory (R)
+    patterns: int         # tables a block stages and walks
+    smem: int             # shared bytes a block
+    global_rows: int      # rows >= R, read from global memory (L2)
+
+    @property
+    def branch(self) -> str:
+        return "smem" if self.global_rows == 0 else "smem + L2"
+
+
+@functools.lru_cache(maxsize=1024)
+def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
+               sms: int, threads: int | None = None,
+               chains: int | None = None, warp_words: int = MATCH_WARP_WORDS,
+               smem: int | None = None,
+               patterns: int | None = None) -> MatchPlan:
+    """The launch layout of a chunk walk of P (n, k) tables over (B, L)
+    chunks from ``n_starts`` start states on a card of ``sms`` SMs
+    (``csrc/match.cuh`` says what each choice is for).
+
+    ``n_starts >= 32`` is start-major: a warp takes one chunk, ⌈n_starts/32⌉
+    chains a thread up to 3, several warp tasks a chunk above 96 starts.
+    Below it is chunk-major: a warp takes ⌊32·chains / n_starts⌋ chunks,
+    with 2 chains a thread, or 1 where 2 would leave the card short of
+    :data:`MATCH_WARPS_PER_SM` warps an SM.
+
+    A block has :data:`MATCH_THREADS` threads and
+    :data:`MATCH_SMEM_BLOCK` bytes (two blocks an SM), the warps' slabs
+    taking at most ``warp_words`` symbol words each and half the bytes
+    together (all of a chunk where that fits). The rest holds the tables of
+    a group of patterns, groups of even size: as many whole tables as fit;
+    or, for tables that do not fit, the first rows of one (start-major:
+    walks from every state visit every row) or of as many as keep
+    :data:`MATCH_MIN_ROWS` rows each (chunk-major). Two cases take
+    one block an SM (twice the bytes) instead, for more rows:
+    - a small launch (every pattern's warp tasks fit one 16-warp block on
+      its own SM, a stream piece): a block has one pattern, just the warps
+      it needs, and its slabs an eighth of the bytes. Its time is its
+      slowest walk, so rows matter, not occupancy;
+    - start-major on a table that does not fit beside the slabs: walks from
+      every state visit every row, where walks from SFA state 0 stay near
+      it; with 2 chains a thread.
+    ``threads``, ``chains``, ``warp_words``, ``smem`` and ``patterns``
+    (tables a block, sharing the rows) override the defaults (a sweep)."""
+    if threads is not None and (threads % 32 or not 32 <= threads <= 512):
+        raise ValueError(f"match_plan: threads must be a multiple of 32 in "
+                         f"[32, 512], got {threads}")
+    if chains is not None and not 1 <= chains <= 3:
+        raise ValueError(f"match_plan: chains must be in [1, 3], got {chains}")
+    spw = 4 if k <= 256 else 1
+    rowb = (k | 1) * 4
+    one = n_starts >= 32
+    wide = one and n * rowb > MATCH_SMEM_BLOCK // 2
+    if one:
+        J = chains or min(2 if wide else 3, -(-n_starts // 32))
+        cw, qw = 1, 32 * J
+        groups = -(-n_starts // qw)
+    else:
+        J = chains or next(
+            (j for j in (2,) if P * -(-B // (32 * j // n_starts))
+             >= MATCH_WARPS_PER_SM * sms), 1)
+        cw, qw, groups = 32 * J // n_starts, n_starts, 1
+    tasks = -(-B // cw) * groups
+    small = P * tasks <= sms * 16
+    if threads is None:
+        threads = min(MATCH_THREADS, 32 * tasks) if small else MATCH_THREADS
+    if smem is None:
+        smem = MATCH_SMEM_BLOCK * (2 if small or wide else 1)
+    stride = cw | 1
+    warps = threads // 32
+    slab_words = max(1, min(-(-L // spw), warp_words // stride,
+                            smem // (8 if small else 2)
+                            // (warps * stride * 4)))
+    sym = warps * slab_words * stride * 4
+    avail = max(0, smem - sym)
+    if patterns is not None:
+        pg = min(P, patterns)
+    elif small or not n:   # a small launch spreads its patterns over SMs
+        pg = 1
+    else:
+        # Whole tables, as many as fit. A table that does not fit: walks
+        # from every state visit every row, so one table and as many rows
+        # as fit; walks from a few states stay near them, so as many tables
+        # as keep MATCH_MIN_ROWS rows each, and the slab is read once for
+        # them all.
+        per = n if one or n * rowb <= avail else min(n, MATCH_MIN_ROWS)
+        most = max(1, min(P, avail // (per * rowb)))
+        pg = -(-P // -(-P // most))   # in groups of even size
+    rows = min(n, avail // (pg * rowb))
+    return MatchPlan(threads, J, one, spw, cw, qw, groups, slab_words, stride,
+                     rows, pg, pg * rows * rowb + sym, n - rows)
+
+
+def match_plan_of(tables: torch.Tensor, chunks: torch.Tensor,
+                  n_starts: int | None = None) -> MatchPlan:
+    """The plan a launch on these CUDA tensors takes: ``tables`` (P, n, k)
+    as :func:`match_bank_chunks` gets them, or one (n, k) table as
+    :func:`match_chunks` (``n_starts = n``); chunks (B, L)."""
+    t = tables if tables.dim() == 3 else tables[None]
+    P, n, k = t.shape
+    B, L = chunks.shape
+    return match_plan(P, n, k, B, L, n if n_starts is None else n_starts,
+                      _sm_count(t.get_device()))
+
+
+@functools.lru_cache(maxsize=1024)
+def _match_args(dev: int, P: int, n: int, k: int, B: int, L: int,
+                n_starts: int, name: str):
+    """The plan of a launch on CUDA device ``dev`` as the C int array the
+    kernel reads; raises where a block cannot hold it."""
+    if n * (k | 1) * 4 >= 1 << 31:
+        raise ValueError(f"{name}: a ({n}, {k}) table is more than the kernel "
+                         f"indexes")
+    plan = match_plan(P, n, k, B, L, n_starts, _sm_count(dev))
+    limit = _smem_limit(dev)
+    if plan.smem > limit:
+        raise ValueError(
+            f"{name}: the walk stages {plan.smem} bytes of shared memory a "
+            f"block, more than the {limit} a block of "
+            f"{torch.cuda.get_device_name(dev)} may hold")
+    return (ctypes.c_int * (len(plan) - 1))(*plan[:-1])
 
 
 def fingerprint_bank(words: torch.Tensor, weights: torch.Tensor,
@@ -200,9 +358,9 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
                       n_starts: int | None = None) -> torch.Tensor:
     """Chunk walks of every table: (P, n, k) tables, (B, L) chunk symbols
     < k -> (P, B, n_starts), column ``q`` the state reached from ``q``.
-    ``n_starts`` defaults to ``n`` (whole transition functions). A table
-    of at most :data:`MATCH_SMEM_TABLE_MAX` bytes is read from shared
-    memory, a larger one from global memory."""
+    ``n_starts`` defaults to ``n`` (whole transition functions). The
+    layout, and how many rows are staged in shared memory, is
+    :func:`match_plan`'s."""
     dev = _check("match_bank_chunks", ("tables", "chunks"), tables, chunks)
     if tables.dim() != 3 or chunks.dim() != 2:
         raise ValueError("match_bank_chunks: tables must be (P, n, k), "
@@ -219,7 +377,8 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
     if P and B:
         _launch("match_bank_chunks_launch", dev, tables.data_ptr(),
                 chunks.data_ptr(), out.data_ptr(), P, n, k, B, L, n_starts,
-                int(n * k * 4 <= MATCH_SMEM_TABLE_MAX))
+                _match_args(dev, P, n, k, B, L, n_starts,
+                            "match_bank_chunks"))
     return out
 
 
@@ -296,10 +455,9 @@ def compose_fold_rows(stacks: torch.Tensor, idx: torch.Tensor
 
 def match_chunks(table: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
     """Chunk walks of one table from every state: (n, k) table, (B, L)
-    chunk symbols < k -> (B, n), column ``q`` the state reached from ``q``.
-    A table whose rows padded to ``k | 1`` words take at most
-    :data:`MATCH_SMEM_TABLE_MAX` bytes is read from shared memory, a larger
-    one from global memory."""
+    chunk symbols < k -> (B, n), column ``q`` the state reached from ``q``:
+    the ``P = 1``, ``n_starts = n`` walk of :func:`match_bank_chunks`, on
+    its own launch (:func:`match_plan` lays it out)."""
     dev = _check("match_chunks", ("table", "chunks"), table, chunks)
     if table.dim() != 2 or chunks.dim() != 2:
         raise ValueError("match_chunks: table must be (n, k), chunks (B, L)")
@@ -311,7 +469,7 @@ def match_chunks(table: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
     if B and n:
         _launch("match_chunks_launch", dev, table.data_ptr(),
                 chunks.data_ptr(), out.data_ptr(), n, k, B, L,
-                int(n * (k | 1) * 4 <= MATCH_SMEM_TABLE_MAX))
+                _match_args(dev, 1, n, k, B, L, n, "match_chunks"))
     return out
 
 

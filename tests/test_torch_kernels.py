@@ -142,7 +142,12 @@ def test_compose_fold_rows_matches_reference_sfa_fold(P, S, n, D, n_chunks):
 
 
 @pytest.mark.parametrize("P,n,k,B,L", [(1, 3, 4, 2, 5), (2, 6, 5, 3, 8),
-                                       (3, 16, 20, 5, 12)])
+                                       (3, 16, 20, 5, 12),
+                                       # n_starts = n - 1 = 31 and 33 (the
+                                       # kernel's two layouts meet at 32),
+                                       # and a wide alphabet (int32 symbols)
+                                       (2, 32, 5, 3, 6), (1, 34, 4, 2, 5),
+                                       (2, 5, 300, 3, 4)])
 def test_match_bank_chunks_matches_pallas(P, n, k, B, L):
     tables, chunks = _match_inputs(P, n, k, B, L, seed=n)
     want = np.asarray(match_bank_chunks_pallas(
@@ -173,7 +178,8 @@ def test_compose_matches_pallas(B, n):
 
 
 @pytest.mark.parametrize("n,k,B,L", [(1, 2, 1, 1), (3, 4, 2, 5), (6, 5, 3, 8),
-                                     (16, 20, 5, 12)])
+                                     (16, 20, 5, 12), (31, 4, 2, 5),
+                                     (33, 3, 3, 6), (5, 300, 3, 4)])
 def test_match_chunks_matches_pallas(n, k, B, L):
     (table,), chunks = _match_inputs(1, n, k, B, L, seed=n + L)
     want = np.asarray(match_chunks_pallas(jnp.asarray(table),
@@ -317,6 +323,97 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             ops.compose_fold(None, gs.transpose(1, 2))
         with pytest.raises(ValueError):
             ops.compose_fold_rows(t, idx.transpose(1, 2))
+
+
+# The chunk walks' launch plan (csrc/match.cuh reads it as an int array).
+_PLAN_SHAPES = {   # (P, n, k, B, L, n_starts) -> branch
+    "sfa 512": ((18, 272, 20, 524_288, 48, 1), "smem"),
+    "sfa 20000": ((23, 7184, 20, 524_288, 48, 1), "smem + L2"),
+    "enumeration": ((5, 87, 20, 524_288, 48, 87), "smem"),
+    "locate": ((1, 87, 20, 4096, 1024, 87), "smem"),
+    "stream piece": ((23, 7184, 20, 256, 256, 1), "smem + L2"),
+    "n_starts = n": ((2, 7184, 20, 4096, 48, 7184), "smem + L2"),
+    "ragged": ((3, 13, 20, 1001, 7, 13), "smem"),
+    "wide alphabet": ((3, 13, 300, 1001, 7, 1), "smem"),
+    "k = 2, n_starts 31": ((1, 40, 2, 9, 5, 31), "smem"),
+    "n_starts 33": ((1, 40, 2, 9, 5, 33), "smem"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_SHAPES))
+def test_match_plan_covers_every_lane_within_the_budget(name):
+    (P, n, k, B, L, ns), branch = _PLAN_SHAPES[name]
+    plan = ops.match_plan(P, n, k, B, L, ns, 132)
+    assert plan.branch == branch
+    assert plan.rows + plan.global_rows == n and plan.rows >= 0
+    # two blocks an SM, or one (twice the bytes) for a small launch or a
+    # start-major walk over a table that does not fit beside the slabs
+    small = P * -(-B // plan.chunks_per_warp) * plan.groups <= 132 * 16
+    one_an_sm = small or (ns >= 32
+                          and n * (k | 1) * 4 > ops.MATCH_SMEM_BLOCK // 2)
+    budget = ops.MATCH_SMEM_BLOCK * (2 if one_an_sm else 1)
+    assert plan.smem <= budget
+    assert plan.smem == (plan.patterns * plan.rows * (k | 1)
+                         + plan.threads // 32 * plan.slab_words
+                         * plan.stride) * 4
+    assert 1 <= plan.patterns <= P
+    assert plan.sym_per_word == (4 if k <= 256 else 1)
+    assert 1 <= plan.chains <= 3 and plan.stride % 2 == 1
+    assert plan.slab_words <= max(1, ops.MATCH_WARP_WORDS // plan.stride)
+    warps_words = plan.threads // 32 * plan.stride
+    assert (plan.slab_words == 1
+            or plan.slab_words * warps_words * 4 <= budget // 2)
+    lanes = 32 * plan.chains
+    if ns >= 32:      # start-major: one chunk a warp, its starts in groups
+        assert plan.one_chunk and plan.chunks_per_warp == 1
+        assert plan.lanes_per_chunk == lanes
+        assert (plan.groups - 1) * lanes < ns <= plan.groups * lanes
+    else:             # chunk-major: whole chunks a warp
+        assert not plan.one_chunk and plan.groups == 1
+        assert plan.lanes_per_chunk == ns
+        assert plan.chunks_per_warp == lanes // ns >= 1
+    # a small launch spreads its patterns over SMs, one a block; otherwise
+    # a block takes a group of them, the groups of even size
+    groups = -(-P // plan.patterns)
+    assert P - plan.patterns * (groups - 1) > plan.patterns - groups
+    if small:
+        assert plan.patterns == 1
+    sym = plan.threads // 32 * plan.slab_words * plan.stride * 4
+    assert plan.rows == min(n, (budget - sym) // (plan.patterns * (k | 1) * 4))
+    if n * (k | 1) * 4 <= budget - sym:    # whole tables where one fits
+        assert plan.global_rows == 0
+    elif ns >= 32 or small:                # else the first rows of one
+        assert plan.patterns == 1
+    else:                                  # or tables sharing the rows
+        assert plan.rows >= min(n, ops.MATCH_MIN_ROWS)
+
+
+def test_match_plan_chains_follow_the_work():
+    # chunk-major: two chains a thread where the warps fill the card, one
+    # for a small launch (a stream piece)
+    assert ops.match_plan(18, 272, 20, 524_288, 48, 1, 132).chains == 2
+    assert ops.match_plan(23, 7184, 20, 256, 256, 1, 132).chains == 1
+    assert ops.match_plan(1, 272, 20, 64 * 1056, 48, 1, 132).chains == 2
+    assert ops.match_plan(1, 272, 20, 64 * 1056 - 64, 48, 1, 132).chains == 1
+    # start-major: ceil(n_starts / 32) up to 3
+    assert [ops.match_plan(1, 200, 20, 10, 8, ns, 132).chains
+            for ns in (32, 33, 64, 87, 128, 200)] == [1, 2, 2, 3, 3, 3]
+    assert ops.match_plan(1, 200, 20, 10, 8, 200, 132).groups == 3
+    # start-major over a table too large to stage: 2 chains, one block an SM
+    wide = ops.match_plan(2, 7184, 20, 4096, 48, 7184, 132)
+    assert wide.chains == 2 and wide.smem > ops.MATCH_SMEM_BLOCK
+    # a small launch (a stream piece): the warps its pattern needs, one
+    # block an SM, rows for the walks that go deep
+    piece = ops.match_plan(23, 7184, 20, 256, 256, 1, 132)
+    assert piece.threads == 256 and piece.rows > 2 * 783
+    # a slab holds all of a chunk where it fits, so the tables of a block
+    # share one staging
+    assert ops.match_plan(5, 87, 20, 524_288, 48, 87, 132).patterns == 5
+    assert ops.match_plan(5, 87, 20, 524_288, 48, 87, 132).slab_words == 12
+    with pytest.raises(ValueError):
+        ops.match_plan(1, 8, 4, 2, 3, 1, 132, threads=48)
+    with pytest.raises(ValueError):
+        ops.match_plan(1, 8, 4, 2, 3, 1, 132, chains=4)
 
 
 def test_build_names_one_library_per_source():
@@ -469,3 +566,83 @@ def test_fingerprint_kernel_on_card(cuda, B, W):
                              for a in _fp_inputs(1, B, W, seed=B))
     args = (words[0], weights[0], limbs[0])
     assert torch.equal(ops.fingerprint(*args), ref.fingerprint(*args))
+
+
+def _walk_case(cuda, P, n, k, B, L, n_starts, seed, lo=0, offset=0):
+    """Tables of entries in [lo, n), chunks (B, L) at ``offset`` int32s
+    past an aligned allocation; walked by the kernel and the plain version."""
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(
+        rng.integers(lo, n, size=(P, n, k)).astype(np.int32)).to(cuda)
+    flat = torch.from_numpy(
+        rng.integers(0, k, size=offset + B * L).astype(np.int32)).to(cuda)
+    chunks = flat[offset:].view(B, L)
+    before = ops.launches["match_bank_chunks"]
+    got = ops.match_bank_chunks(tables, chunks, n_starts)
+    assert ops.launches["match_bank_chunks"] == before + 1
+    assert torch.equal(got, ref.match_bank_chunks(tables, chunks, n_starts))
+
+
+def _staged_rows(P, k, B, L, n_starts):
+    """R: the rows the plan stages of a table too large to stage whole."""
+    return ops.match_plan(P, 1 << 20, k, B, L, n_starts, ops._sm_count(0)).rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_starts", [1, 87])
+@pytest.mark.parametrize("where", ["top rows", "R rows", "R + 1 rows"])
+def test_match_bank_chunks_kernel_rows_past_the_staged(cuda, where, n_starts):
+    P, k, B, L = 2, 20, 300, 48
+    R = _staged_rows(P, k, B, L, n_starts)
+    if where == "top rows":     # every transition lands on a row >= R
+        n, lo = R + 200, R
+    else:
+        n, lo = (R if where == "R rows" else R + 1), 0
+    plan = ops.match_plan(P, n, k, B, L, n_starts, ops._sm_count(0))
+    assert plan.rows == R and plan.global_rows == n - R
+    _walk_case(cuda, P, n, k, B, L, n_starts, seed=n, lo=lo)
+
+
+@pytest.mark.cuda
+def test_match_bank_chunks_kernel_tables_share_a_block(cuda):
+    # chunk-major walks of a launch too large to be small: a block stages
+    # the first rows of several tables and walks each slab through them all
+    P, n, k, B, L = 6, 1000, 20, 30_000, 48
+    plan = ops.match_plan(P, n, k, B, L, 1, ops._sm_count(0))
+    assert plan.patterns == P and 0 < plan.rows < n
+    _walk_case(cuda, P, n, k, B, L, 1, seed=P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_starts", [1, 31, 32, 33, 87, 100])
+def test_match_bank_chunks_kernel_n_starts(cuda, n_starts):
+    _walk_case(cuda, 3, 100, 20, 1001, 48, n_starts, seed=n_starts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,offset", [(1001, 7, 0), (333, 50, 0),
+                                        (257, 48, 1), (129, 1, 0)])
+@pytest.mark.parametrize("n_starts", [1, 13, 40])
+def test_match_bank_chunks_kernel_ragged_chunks(cuda, B, L, offset,
+                                                n_starts):
+    # B off the warp's tile, L off 4 and 16, chunks off 16-byte alignment
+    _walk_case(cuda, 2, 40, 20, B, L, n_starts, seed=B, offset=offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 256, 257, 300])
+@pytest.mark.parametrize("n_starts", [1, 50])
+def test_match_bank_chunks_kernel_alphabets(cuda, k, n_starts):
+    # byte symbols up to k = 256, int32 symbols above
+    assert ops.match_plan(2, 50, k, 500, 33, n_starts,
+                          132).sym_per_word == (4 if k <= 256 else 1)
+    _walk_case(cuda, 2, 50, k, 500, 33, n_starts, seed=k)
+
+
+@pytest.mark.cuda
+def test_match_chunks_kernel_at_locate_shape(cuda):
+    (table,), chunks = _match_inputs(1, 87, 20, 4096, 1024, seed=87)
+    t, c = torch.from_numpy(table).to(cuda), torch.from_numpy(chunks).to(cuda)
+    before = ops.launches["match_chunks"]
+    assert torch.equal(ops.match_chunks(t, c), ref.match_chunks(t, c))
+    assert ops.launches["match_chunks"] == before + 1
