@@ -12,10 +12,9 @@ Phases, in order (any failure raises and exits non-zero):
 2. hold each kernel equal to its plain PyTorch version on the card, on
    random inputs from a numpy seed: at the largest shapes its path gives
    it and at a ragged edge; the two chunk walks also on tables past their
-   shared-memory budget and on the bundled bank's own tables (compiled
-   once here: budgets 512 and 20000, and a stream piece's shape), each
-   walk's launch plan held to the branch its case names and its share of
-   lookups on staged rows printed; time each kernel,
+   shared-memory budget, each walk's launch plan held to the branch its
+   case names and its share of lookups on staged rows printed; time each
+   kernel,
    its plain version, and (where one exists) one PyTorch call that computes
    the same function — for the kernel and that call both the device time
    per call and the host's time per call of the Python wrapper;
@@ -24,7 +23,11 @@ Phases, in order (any failure raises and exits non-zero):
    default plan (SFA budget 512: SFA and enumeration patterns) and under
    ``mode="sfa"`` with budget 20000 (all 23 SFAs, the largest 7,184
    states), each followed by ``scan`` and ``census`` of a 65,536 x 384
-   random protein corpus; then read the launch counts;
+   random protein corpus; then read the launch counts; then hold
+   ``match_bank_chunks`` equal to its plain version, and time it as in
+   phase 2, on the bundled bank's own tables as these compiles built them
+   (budget-512 enumeration tables and SFA deltas, budget-20000 deltas, and
+   a stream piece's shape);
 4. run the same construction and scan through the plain versions on the
    card, and through the NumPy ``reference`` backend on a 256-document
    sub-corpus, and require equal SFAs, hits and census;
@@ -202,7 +205,7 @@ def bound(nbytes: float, ops: float) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def kernel_cases(torch, ops, ref, dev, real):
+def kernel_cases(torch, ops, ref, dev):
     rng = np.random.default_rng(SEED)
 
     def i32(a):
@@ -294,25 +297,7 @@ def kernel_cases(torch, ops, ref, dev, real):
             ops=0,
         ))
 
-    return cases + match_cases(torch, ops, ref, dev, ids, real)
-
-
-def bundled_tables(torch) -> dict:
-    """The bundled bank's scan tables on the card, compiled once: the
-    budget-512 enumeration tables and SFA deltas, the budget-20000 deltas,
-    and the stream's chunk shape (``n_chunks``, ``block_len``) of the
-    budget-20000 scanner."""
-    from repro_torch.core.prosite import load_bank
-    from repro_torch.engine import Scanner
-
-    bank = load_bank()
-    s512 = Scanner.compile(bank)
-    s20k = Scanner.compile(bank, mode="sfa", sfa_state_budget=20_000)
-    g512 = {g.mode: g for g in s512.groups}
-    sess = s20k.open_stream()
-    return dict(enumeration=g512["enumeration"].tables,
-                sfa512=g512["sfa"].deltas, sfa20k=s20k.groups[0].deltas,
-                stream=(sess.n_chunks, sess.block_len))
+    return cases + match_cases(torch, ops, ref, dev, ids)
 
 
 def staged_share(torch, tables, chunks, n_starts: int, rows: int) -> float:
@@ -332,38 +317,38 @@ def staged_share(torch, tables, chunks, n_starts: int, rows: int) -> float:
     return int(staged) / (P * B * n_starts * L)
 
 
-def match_cases(torch, ops, ref, dev, ids, real, check_plan: bool = True):
-    """The two chunk walks at the main path's shapes: on random tables
-    (``ids``), and on the bundled bank's tables (``real``, from
-    :func:`bundled_tables`). Each case names the branch its plan must take
-    (``smem``: the whole table staged; ``smem + L2``: rows >= R read from
-    global memory); with ``check_plan`` the wrapper's plan is held to it
-    and the share of lookups on staged rows is printed."""
-    cases = []
+def walk_case(torch, ops, kernel, label, branch, tables, ch, ns, run,
+              plain) -> dict:
+    """A chunk-walk case. It names the branch its plan must take (``smem``:
+    the whole table staged; ``smem + L2``: rows >= R read from global
+    memory); the wrapper's plan is held to it, and the plan and the share of
+    lookups on staged rows are printed."""
+    P, n, _ = tables.shape
+    B, L = ch.shape
+    plan = ops.match_plan_of(tables, ch, ns)
+    check(plan.branch == branch,
+          f"{kernel} {label}: plan branch {plan.branch!r}, expected "
+          f"{branch!r}")
+    share = (1.0 if not plan.global_rows else
+             staged_share(torch, tables, ch, ns, plan.rows))
+    print(f"[plan] {kernel:18s} {label:40s} {plan.branch:9s} "
+          f"R = {plan.rows}/{n} rows, {plan.threads} threads x "
+          f"{plan.chains} chains, {plan.patterns} tables a block, "
+          f"{'start' if plan.one_chunk else 'chunk'}-major, "
+          f"{plan.smem} B shared; lookups on staged rows {share:.6f}",
+          flush=True)
+    return dict(
+        kernel=kernel, label=label,
+        shape=f"tables {P}x{n}x{K}, chunks {B}x{L}, n_starts {ns}",
+        run=run, plain=plain, library=None,
+        nbytes=4 * (P * n * K + B * L + P * B * ns),
+        ops=2 * P * B * ns * L,
+    )
 
-    def add(kernel, label, branch, tables, ch, ns, run, plain):
-        P, n, _ = tables.shape
-        B, L = ch.shape
-        if check_plan:
-            plan = ops.match_plan_of(tables, ch, ns)
-            check(plan.branch == branch,
-                  f"{kernel} {label}: plan branch {plan.branch!r}, "
-                  f"expected {branch!r}")
-            share = (1.0 if not plan.global_rows else
-                     staged_share(torch, tables, ch, ns, plan.rows))
-            print(f"[plan] {kernel:18s} {label:40s} {plan.branch:9s} "
-                  f"R = {plan.rows}/{n} rows, {plan.threads} threads x "
-                  f"{plan.chains} chains, {plan.patterns} tables a block, "
-                  f"{'start' if plan.one_chunk else 'chunk'}-major, "
-                  f"{plan.smem} B shared; lookups on staged rows "
-                  f"{share:.6f}", flush=True)
-        cases.append(dict(
-            kernel=kernel, label=label,
-            shape=f"tables {P}x{n}x{K}, chunks {B}x{L}, n_starts {ns}",
-            run=run, plain=plain, library=None, walk=(tables, ch, ns),
-            nbytes=4 * (P * n * K + B * L + P * B * ns),
-            ops=2 * P * B * ns * L,
-        ))
+
+def match_cases(torch, ops, ref, dev, ids):
+    """The two chunk walks at the main path's shapes, on random tables."""
+    cases = []
 
     # match_chunks: locate's first pass (PS00010's 87-state table, 4,096
     # chunks of 1,024 residues, all 87 lanes), then a table past the
@@ -373,9 +358,10 @@ def match_cases(torch, ops, ref, dev, ids, real, check_plan: bool = True):
             ("7,184 states", (7184, 300, 48), "smem + L2"),
             ("ragged", (13, 1001, 7), "smem")):
         table, ch = ids(n, (n, K)), ids(K, (B, L))
-        add("match_chunks", label, branch, table[None], ch, n,
+        cases.append(walk_case(
+            torch, ops, "match_chunks", label, branch, table[None], ch, n,
             lambda a=(table, ch): ops.match_chunks(*a),
-            lambda a=(table, ch): ref.match_chunks(*a))
+            lambda a=(table, ch): ref.match_chunks(*a)))
 
     # match_bank_chunks at the scan's shapes (65,536 docs x 8 chunks of 48
     # symbols), on random tables: the SFA group (18 deltas of <= 272 rows,
@@ -395,29 +381,49 @@ def match_cases(torch, ops, ref, dev, ids, real, check_plan: bool = True):
             ("ragged, n_starts = n", (3, 13, ids(K, (1001, 7)), 13), "smem"),
             ("ragged, n_starts = 1", (3, 13, ids(K, (1001, 7)), 1), "smem")):
         tables = ids(n, (P, n, K))
-        add("match_bank_chunks", label, branch, tables, ch, ns,
+        cases.append(walk_case(
+            torch, ops, "match_bank_chunks", label, branch, tables, ch, ns,
             lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
-            lambda a=(tables, ch, ns): ref.match_bank_chunks(*a))
+            lambda a=(tables, ch, ns): ref.match_bank_chunks(*a)))
+    return cases
 
-    # The bundled bank's own tables on the same chunks (the walks stay near
-    # state 0), and one stream piece of the single phase: 2^22 / 64
-    # residues in blocks of n_chunks x block_len through the budget-20000
-    # deltas — a small launch.
-    n_chunks, block_len = real["stream"]
+
+def bundled_cases(torch, ops, ref, dev, main) -> list:
+    """``match_bank_chunks`` on the bundled bank's own tables, as the main
+    path's scanners compiled them (run after it, so its compiles stay
+    cold): the budget-512 enumeration tables and SFA deltas and the
+    budget-20000 deltas on random chunks of the scan's shape (the walks stay
+    near state 0), and one stream piece of the single phase: 2^22 / 64
+    residues in blocks of the stream's n_chunks x block_len through the
+    budget-20000 deltas — a small launch."""
+    rng = np.random.default_rng(SEED + 1)
+
+    def ids(hi, shape):
+        return torch.from_numpy(
+            rng.integers(0, hi, shape).astype(np.int32)).to(dev)
+
+    runs = main["runs"]
+    g512 = {g.mode: g for g in runs["budget 512 (auto)"]["scanner"].groups}
+    s20k = runs["budget 20000 (sfa)"]["scanner"]
+    enum, sfa512 = g512["enumeration"].tables, g512["sfa"].deltas
+    sfa20k = s20k.groups[0].deltas
+    sess = s20k.open_stream()
+    n_chunks, block_len = sess.n_chunks, sess.block_len
+    chunks = ids(K, (DOCS * N_CHUNKS, DOC_LEN // N_CHUNKS))
     piece = ids(K, (SEQ_LEN // STREAM_PIECES // (n_chunks * block_len)
                     * n_chunks, block_len))
+    cases = []
     for label, (tables, ch, ns), branch in (
             ("enumeration, budget 512, bundled",
-             (real["enumeration"], chunks, real["enumeration"].shape[1]),
-             "smem"),
-            ("sfa, budget 512, bundled", (real["sfa512"], chunks, 1), "smem"),
-            ("sfa, budget 20000, bundled", (real["sfa20k"], chunks, 1),
-             "smem + L2"),
-            ("stream piece, budget 20000, bundled",
-             (real["sfa20k"], piece, 1), "smem + L2")):
-        add("match_bank_chunks", label, branch, tables, ch, ns,
+             (enum, chunks, enum.shape[1]), "smem"),
+            ("sfa, budget 512, bundled", (sfa512, chunks, 1), "smem"),
+            ("sfa, budget 20000, bundled", (sfa20k, chunks, 1), "smem + L2"),
+            ("stream piece, budget 20000, bundled", (sfa20k, piece, 1),
+             "smem + L2")):
+        cases.append(walk_case(
+            torch, ops, "match_bank_chunks", label, branch, tables, ch, ns,
             lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
-            lambda a=(tables, ch, ns): ref.match_bank_chunks(*a))
+            lambda a=(tables, ch, ns): ref.match_bank_chunks(*a)))
     return cases
 
 
@@ -939,15 +945,15 @@ def main(argv=None) -> int:
               f"{len(spills)} spilling", flush=True)
 
     check_expand_limit(torch, ops, dev)
-    real = bundled_tables(torch)
     kernel_results = run_kernel_checks(
-        torch, kernel_cases(torch, ops, kref, dev, real)
+        torch, kernel_cases(torch, ops, kref, dev)
         + form_cases(torch, ops, kref, dev))
-    del real
 
     corpus = np.random.default_rng(SEED).integers(
         0, K, (DOCS, DOC_LEN), dtype=np.int32)
     main_res = main_path(torch, ops, corpus)
+    kernel_results += run_kernel_checks(
+        torch, bundled_cases(torch, ops, kref, dev, main_res))
     twin_res = twins(torch, corpus, main_res)
     seq = np.random.default_rng(SEED).integers(0, K, SEQ_LEN, dtype=np.int32)
     single_res = single_path(torch, ops, kref, seq, args.profile)

@@ -343,28 +343,34 @@ __global__ void __launch_bounds__(512) walk_kernel(const Args a) {
 template <int SPW, int J, bool kOne, bool kAll>
 int launch_t(const Args &a, int threads, int smem, cudaStream_t stream) {
   auto kernel = walk_kernel<SPW, J, kOne, kAll>;
-  // Per instantiation, kept across launches: the shared memory opted in to
-  // and the resident blocks an SM at the last (threads, smem).
-  static int opted = 48 * 1024, last_threads = -1, last_smem = -1, per_sm = 1;
+  // Per instantiation and device, kept across launches: the shared memory
+  // opted in to and the resident blocks an SM at the last (threads, smem).
+  struct Seen {
+    int opted = 48 * 1024, threads = -1, smem = -1, per_sm = 1;
+  };
+  static Seen seen[kMaxDevices];
+  const int dev = current_device();
+  Seen once;
+  Seen &d = dev >= 0 && dev < kMaxDevices ? seen[dev] : once;
   cudaError_t e;
-  if (smem > opted) {
+  if (smem > d.opted) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    opted = smem;
+    d.opted = smem;
   }
-  if (threads != last_threads || smem != last_smem) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+  if (threads != d.threads || smem != d.smem) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.per_sm, kernel,
                                                       threads, smem);
     if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) per_sm = 1;
-    last_threads = threads;
-    last_smem = smem;
+    if (d.per_sm < 1) d.per_sm = 1;
+    d.threads = threads;
+    d.smem = smem;
   }
   // Block groups: the resident blocks shared among the pattern groups, at
   // least one, and no more than the warp tasks need.
   const long long warps = threads / 32;
-  long long groups = (long long)sm_count() * per_sm / a.n_pgroups;
+  long long groups = (long long)sm_count(dev) * d.per_sm / a.n_pgroups;
   const long long need = (a.tasks + warps - 1) / warps;
   if (groups > need) groups = need;
   if (groups < 1) groups = 1;

@@ -42,8 +42,9 @@ launches = {name: 0 for name in build.KERNELS}
 #: with table rows (padded to ``k | 1`` words) and its warps' symbol slabs:
 #: 113 KB, so two blocks fit an SM of an H100 (228 KB an SM, 1 KB of it
 #: reserved a block). A table whose rows do not fit beside the slabs stages
-#: its first rows and reads the rest from global memory (L2).
-#: :func:`match_plan` applies it; this is the one place it lives.
+#: its first rows and reads the rest from global memory (L2). A card whose
+#: blocks may opt in to less caps it. :func:`match_plan` applies it; this
+#: is the one place it lives.
 MATCH_SMEM_BLOCK = 113 * 1024
 #: Threads a block, and symbol words a warp's slab buffer holds at most
 #: (8 KB), of the chunk walks.
@@ -171,12 +172,10 @@ class MatchPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)
 def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
-               sms: int, threads: int | None = None,
-               chains: int | None = None, warp_words: int = MATCH_WARP_WORDS,
-               smem: int | None = None,
-               patterns: int | None = None) -> MatchPlan:
+               sms: int, smem_limit: int) -> MatchPlan:
     """The launch layout of a chunk walk of P (n, k) tables over (B, L)
-    chunks from ``n_starts`` start states on a card of ``sms`` SMs
+    chunks from ``n_starts`` start states on a card of ``sms`` SMs whose
+    blocks may opt in to ``smem_limit`` bytes of shared memory
     (``csrc/match.cuh`` says what each choice is for).
 
     ``n_starts >= 32`` is start-major: a warp takes one chunk, ⌈n_starts/32⌉
@@ -187,8 +186,8 @@ def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
 
     A block has :data:`MATCH_THREADS` threads and
     :data:`MATCH_SMEM_BLOCK` bytes (two blocks an SM), the warps' slabs
-    taking at most ``warp_words`` symbol words each and half the bytes
-    together (all of a chunk where that fits). The rest holds the tables of
+    taking at most :data:`MATCH_WARP_WORDS` symbol words each and half the
+    bytes together (all of a chunk where that fits). The rest holds the tables of
     a group of patterns, groups of even size: as many whole tables as fit;
     or, for tables that do not fit, the first rows of one (start-major:
     walks from every state visit every row) or of as many as keep
@@ -201,42 +200,31 @@ def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
     - start-major on a table that does not fit beside the slabs: walks from
       every state visit every row, where walks from SFA state 0 stay near
       it; with 2 chains a thread.
-    ``threads``, ``chains``, ``warp_words``, ``smem`` and ``patterns``
-    (tables a block, sharing the rows) override the defaults (a sweep)."""
-    if threads is not None and (threads % 32 or not 32 <= threads <= 512):
-        raise ValueError(f"match_plan: threads must be a multiple of 32 in "
-                         f"[32, 512], got {threads}")
-    if chains is not None and not 1 <= chains <= 3:
-        raise ValueError(f"match_plan: chains must be in [1, 3], got {chains}")
+    No block takes more than ``smem_limit`` bytes for its slabs and rows."""
     spw = 4 if k <= 256 else 1
     rowb = (k | 1) * 4
     one = n_starts >= 32
     wide = one and n * rowb > MATCH_SMEM_BLOCK // 2
     if one:
-        J = chains or min(2 if wide else 3, -(-n_starts // 32))
+        J = min(2 if wide else 3, -(-n_starts // 32))
         cw, qw = 1, 32 * J
         groups = -(-n_starts // qw)
     else:
-        J = chains or next(
-            (j for j in (2,) if P * -(-B // (32 * j // n_starts))
-             >= MATCH_WARPS_PER_SM * sms), 1)
+        J = (2 if P * -(-B // (64 // n_starts)) >= MATCH_WARPS_PER_SM * sms
+             else 1)
         cw, qw, groups = 32 * J // n_starts, n_starts, 1
     tasks = -(-B // cw) * groups
     small = P * tasks <= sms * 16
-    if threads is None:
-        threads = min(MATCH_THREADS, 32 * tasks) if small else MATCH_THREADS
-    if smem is None:
-        smem = MATCH_SMEM_BLOCK * (2 if small or wide else 1)
+    threads = min(MATCH_THREADS, 32 * tasks) if small else MATCH_THREADS
+    smem = min(MATCH_SMEM_BLOCK * (2 if small or wide else 1), smem_limit)
     stride = cw | 1
     warps = threads // 32
-    slab_words = max(1, min(-(-L // spw), warp_words // stride,
+    slab_words = max(1, min(-(-L // spw), MATCH_WARP_WORDS // stride,
                             smem // (8 if small else 2)
                             // (warps * stride * 4)))
     sym = warps * slab_words * stride * 4
     avail = max(0, smem - sym)
-    if patterns is not None:
-        pg = min(P, patterns)
-    elif small or not n:   # a small launch spreads its patterns over SMs
+    if small or not n:   # a small launch spreads its patterns over SMs
         pg = 1
     else:
         # Whole tables, as many as fit. A table that does not fit: walks
@@ -260,8 +248,9 @@ def match_plan_of(tables: torch.Tensor, chunks: torch.Tensor,
     t = tables if tables.dim() == 3 else tables[None]
     P, n, k = t.shape
     B, L = chunks.shape
+    dev = t.get_device()
     return match_plan(P, n, k, B, L, n if n_starts is None else n_starts,
-                      _sm_count(t.get_device()))
+                      _sm_count(dev), _smem_limit(dev))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -272,8 +261,8 @@ def _match_args(dev: int, P: int, n: int, k: int, B: int, L: int,
     if n * (k | 1) * 4 >= 1 << 31:
         raise ValueError(f"{name}: a ({n}, {k}) table is more than the kernel "
                          f"indexes")
-    plan = match_plan(P, n, k, B, L, n_starts, _sm_count(dev))
     limit = _smem_limit(dev)
+    plan = match_plan(P, n, k, B, L, n_starts, _sm_count(dev), limit)
     if plan.smem > limit:
         raise ValueError(
             f"{name}: the walk stages {plan.smem} bytes of shared memory a "

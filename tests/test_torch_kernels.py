@@ -27,6 +27,7 @@ from repro.kernels.compose import compose_pallas  # noqa: E402
 from repro.kernels.expand import expand_bank_pallas  # noqa: E402
 from repro.kernels.match_scan import match_bank_chunks_pallas  # noqa: E402
 from repro.kernels.match_scan import match_chunks_pallas  # noqa: E402
+from repro.kernels.ref import match_chunks_ref  # noqa: E402
 from repro_torch.core.fingerprint import (  # noqa: E402
     BarrettConstants,
     fold_weights_u32,
@@ -143,9 +144,11 @@ def test_compose_fold_rows_matches_reference_sfa_fold(P, S, n, D, n_chunks):
 
 @pytest.mark.parametrize("P,n,k,B,L", [(1, 3, 4, 2, 5), (2, 6, 5, 3, 8),
                                        (3, 16, 20, 5, 12),
-                                       # n_starts = n - 1 = 31 and 33 (the
-                                       # kernel's two layouts meet at 32),
-                                       # and a wide alphabet (int32 symbols)
+                                       # n_starts = n - 1 = 31 and 33 and a
+                                       # wide alphabet: the edges of the
+                                       # CUDA walk's layouts, here the plain
+                                       # version's (CPU tensors); the cuda
+                                       # tests hold the kernel at them
                                        (2, 32, 5, 3, 6), (1, 34, 4, 2, 5),
                                        (2, 5, 300, 3, 4)])
 def test_match_bank_chunks_matches_pallas(P, n, k, B, L):
@@ -325,7 +328,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             ops.compose_fold_rows(t, idx.transpose(1, 2))
 
 
-# The chunk walks' launch plan (csrc/match.cuh reads it as an int array).
+# The chunk walks' launch plan (csrc/match.cuh reads it as an int array),
+# on an H100 (132 SMs; a block may opt in to 227 KB) and on a card whose
+# blocks may opt in to 48 KB.
+_SMS, _H100_SMEM = 132, 227 * 1024
 _PLAN_SHAPES = {   # (P, n, k, B, L, n_starts) -> branch
     "sfa 512": ((18, 272, 20, 524_288, 48, 1), "smem"),
     "sfa 20000": ((23, 7184, 20, 524_288, 48, 1), "smem + L2"),
@@ -340,18 +346,21 @@ _PLAN_SHAPES = {   # (P, n, k, B, L, n_starts) -> branch
 }
 
 
+@pytest.mark.parametrize("limit", [_H100_SMEM, 48 * 1024])
 @pytest.mark.parametrize("name", sorted(_PLAN_SHAPES))
-def test_match_plan_covers_every_lane_within_the_budget(name):
+def test_match_plan_covers_every_lane_within_the_budget(name, limit):
     (P, n, k, B, L, ns), branch = _PLAN_SHAPES[name]
-    plan = ops.match_plan(P, n, k, B, L, ns, 132)
-    assert plan.branch == branch
+    plan = ops.match_plan(P, n, k, B, L, ns, _SMS, limit)
+    if limit == _H100_SMEM:
+        assert plan.branch == branch
     assert plan.rows + plan.global_rows == n and plan.rows >= 0
     # two blocks an SM, or one (twice the bytes) for a small launch or a
-    # start-major walk over a table that does not fit beside the slabs
-    small = P * -(-B // plan.chunks_per_warp) * plan.groups <= 132 * 16
+    # start-major walk over a table that does not fit beside the slabs;
+    # never more than a block may opt in to
+    small = P * -(-B // plan.chunks_per_warp) * plan.groups <= _SMS * 16
     one_an_sm = small or (ns >= 32
                           and n * (k | 1) * 4 > ops.MATCH_SMEM_BLOCK // 2)
-    budget = ops.MATCH_SMEM_BLOCK * (2 if one_an_sm else 1)
+    budget = min(ops.MATCH_SMEM_BLOCK * (2 if one_an_sm else 1), limit)
     assert plan.smem <= budget
     assert plan.smem == (plan.patterns * plan.rows * (k | 1)
                          + plan.threads // 32 * plan.slab_words
@@ -389,31 +398,30 @@ def test_match_plan_covers_every_lane_within_the_budget(name):
 
 
 def test_match_plan_chains_follow_the_work():
+    def plan(*shape):
+        return ops.match_plan(*shape, _SMS, _H100_SMEM)
+
     # chunk-major: two chains a thread where the warps fill the card, one
     # for a small launch (a stream piece)
-    assert ops.match_plan(18, 272, 20, 524_288, 48, 1, 132).chains == 2
-    assert ops.match_plan(23, 7184, 20, 256, 256, 1, 132).chains == 1
-    assert ops.match_plan(1, 272, 20, 64 * 1056, 48, 1, 132).chains == 2
-    assert ops.match_plan(1, 272, 20, 64 * 1056 - 64, 48, 1, 132).chains == 1
+    assert plan(18, 272, 20, 524_288, 48, 1).chains == 2
+    assert plan(23, 7184, 20, 256, 256, 1).chains == 1
+    assert plan(1, 272, 20, 64 * 1056, 48, 1).chains == 2
+    assert plan(1, 272, 20, 64 * 1056 - 64, 48, 1).chains == 1
     # start-major: ceil(n_starts / 32) up to 3
-    assert [ops.match_plan(1, 200, 20, 10, 8, ns, 132).chains
+    assert [plan(1, 200, 20, 10, 8, ns).chains
             for ns in (32, 33, 64, 87, 128, 200)] == [1, 2, 2, 3, 3, 3]
-    assert ops.match_plan(1, 200, 20, 10, 8, 200, 132).groups == 3
+    assert plan(1, 200, 20, 10, 8, 200).groups == 3
     # start-major over a table too large to stage: 2 chains, one block an SM
-    wide = ops.match_plan(2, 7184, 20, 4096, 48, 7184, 132)
+    wide = plan(2, 7184, 20, 4096, 48, 7184)
     assert wide.chains == 2 and wide.smem > ops.MATCH_SMEM_BLOCK
     # a small launch (a stream piece): the warps its pattern needs, one
     # block an SM, rows for the walks that go deep
-    piece = ops.match_plan(23, 7184, 20, 256, 256, 1, 132)
+    piece = plan(23, 7184, 20, 256, 256, 1)
     assert piece.threads == 256 and piece.rows > 2 * 783
     # a slab holds all of a chunk where it fits, so the tables of a block
     # share one staging
-    assert ops.match_plan(5, 87, 20, 524_288, 48, 87, 132).patterns == 5
-    assert ops.match_plan(5, 87, 20, 524_288, 48, 87, 132).slab_words == 12
-    with pytest.raises(ValueError):
-        ops.match_plan(1, 8, 4, 2, 3, 1, 132, threads=48)
-    with pytest.raises(ValueError):
-        ops.match_plan(1, 8, 4, 2, 3, 1, 132, chains=4)
+    assert plan(5, 87, 20, 524_288, 48, 87).patterns == 5
+    assert plan(5, 87, 20, 524_288, 48, 87).slab_words == 12
 
 
 def test_build_names_one_library_per_source():
@@ -568,9 +576,20 @@ def test_fingerprint_kernel_on_card(cuda, B, W):
     assert torch.equal(ops.fingerprint(*args), ref.fingerprint(*args))
 
 
-def _walk_case(cuda, P, n, k, B, L, n_starts, seed, lo=0, offset=0):
+def _jax_walks(tables, chunks, n_starts):
+    """The same walks through the JAX package's reference: each table's
+    ``match_chunks_ref`` (every start state), its first ``n_starts``
+    columns -> (P, B, n_starts) numpy."""
+    c = jnp.asarray(chunks.cpu().numpy())
+    return np.stack([np.asarray(match_chunks_ref(jnp.asarray(t), c))
+                     [:, :n_starts] for t in tables.cpu().numpy()])
+
+
+def _walk_case(cuda, P, n, k, B, L, n_starts, seed, lo=0, offset=0,
+               jax_every=1):
     """Tables of entries in [lo, n), chunks (B, L) at ``offset`` int32s
-    past an aligned allocation; walked by the kernel and the plain version."""
+    past an aligned allocation; walked by the kernel, the plain version and,
+    on every ``jax_every``-th chunk, the JAX package's reference."""
     rng = np.random.default_rng(seed)
     tables = torch.from_numpy(
         rng.integers(lo, n, size=(P, n, k)).astype(np.int32)).to(cuda)
@@ -581,11 +600,14 @@ def _walk_case(cuda, P, n, k, B, L, n_starts, seed, lo=0, offset=0):
     got = ops.match_bank_chunks(tables, chunks, n_starts)
     assert ops.launches["match_bank_chunks"] == before + 1
     assert torch.equal(got, ref.match_bank_chunks(tables, chunks, n_starts))
+    assert np.array_equal(got[:, ::jax_every].cpu().numpy(), _jax_walks(
+        tables, chunks[::jax_every], n_starts))
 
 
 def _staged_rows(P, k, B, L, n_starts):
     """R: the rows the plan stages of a table too large to stage whole."""
-    return ops.match_plan(P, 1 << 20, k, B, L, n_starts, ops._sm_count(0)).rows
+    return ops.match_plan(P, 1 << 20, k, B, L, n_starts, ops._sm_count(0),
+                          ops._smem_limit(0)).rows
 
 
 @pytest.mark.cuda
@@ -598,7 +620,8 @@ def test_match_bank_chunks_kernel_rows_past_the_staged(cuda, where, n_starts):
         n, lo = R + 200, R
     else:
         n, lo = (R if where == "R rows" else R + 1), 0
-    plan = ops.match_plan(P, n, k, B, L, n_starts, ops._sm_count(0))
+    plan = ops.match_plan(P, n, k, B, L, n_starts, ops._sm_count(0),
+                          ops._smem_limit(0))
     assert plan.rows == R and plan.global_rows == n - R
     _walk_case(cuda, P, n, k, B, L, n_starts, seed=n, lo=lo)
 
@@ -608,9 +631,11 @@ def test_match_bank_chunks_kernel_tables_share_a_block(cuda):
     # chunk-major walks of a launch too large to be small: a block stages
     # the first rows of several tables and walks each slab through them all
     P, n, k, B, L = 6, 1000, 20, 30_000, 48
-    plan = ops.match_plan(P, n, k, B, L, 1, ops._sm_count(0))
+    plan = ops.match_plan(P, n, k, B, L, 1, ops._sm_count(0),
+                          ops._smem_limit(0))
     assert plan.patterns == P and 0 < plan.rows < n
-    _walk_case(cuda, P, n, k, B, L, 1, seed=P)
+    # the JAX reference walks every start of a chunk: every 10th chunk
+    _walk_case(cuda, P, n, k, B, L, 1, seed=P, jax_every=10)
 
 
 @pytest.mark.cuda
@@ -634,8 +659,8 @@ def test_match_bank_chunks_kernel_ragged_chunks(cuda, B, L, offset,
 @pytest.mark.parametrize("n_starts", [1, 50])
 def test_match_bank_chunks_kernel_alphabets(cuda, k, n_starts):
     # byte symbols up to k = 256, int32 symbols above
-    assert ops.match_plan(2, 50, k, 500, 33, n_starts,
-                          132).sym_per_word == (4 if k <= 256 else 1)
+    assert ops.match_plan(2, 50, k, 500, 33, n_starts, _SMS,
+                          _H100_SMEM).sym_per_word == (4 if k <= 256 else 1)
     _walk_case(cuda, 2, 50, k, 500, 33, n_starts, seed=k)
 
 
@@ -644,5 +669,8 @@ def test_match_chunks_kernel_at_locate_shape(cuda):
     (table,), chunks = _match_inputs(1, 87, 20, 4096, 1024, seed=87)
     t, c = torch.from_numpy(table).to(cuda), torch.from_numpy(chunks).to(cuda)
     before = ops.launches["match_chunks"]
-    assert torch.equal(ops.match_chunks(t, c), ref.match_chunks(t, c))
+    got = ops.match_chunks(t, c)
     assert ops.launches["match_chunks"] == before + 1
+    assert torch.equal(got, ref.match_chunks(t, c))
+    assert np.array_equal(got.cpu().numpy(), np.asarray(
+        match_chunks_ref(jnp.asarray(table), jnp.asarray(chunks))))
