@@ -7,17 +7,19 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, in order (any failure raises and exits non-zero):
 
-1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+1. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc (one process per source, in parallel) and print the build time;
 2. hold each kernel equal to its plain PyTorch version on the card, on
    random inputs from a numpy seed: at the largest shapes its path gives
    it and at a ragged edge; the two chunk walks also on tables past their
    shared-memory budget, each walk's launch plan held to the branch its
-   case names and its share of lookups on staged rows printed; time each
-   kernel,
-   its plain version, and (where one exists) one PyTorch call that computes
-   the same function — for the kernel and that call both the device time
-   per call and the host's time per call of the Python wrapper;
+   case names and its share of lookups on staged rows printed; the
+   speculative scan's two launches (the chunk walk from explicit start
+   states, ``spec_resolve`` under a profile that hits every chunk and one
+   that misses every chunk with 2 repairs a lane) at its shape; time each
+   kernel, its plain version, and (where one exists) one PyTorch call that
+   computes the same function — for the kernel and that call both the
+   device time per call and the host's time per call of the wrapper;
 3. drive the main path at full size with every launch count at 0: the
    bundled 23-signature PROSITE bank through ``Scanner.compile`` under the
    default plan (SFA budget 512: SFA and enumeration patterns) and under
@@ -40,9 +42,36 @@ Phases, in order (any failure raises and exits non-zero):
    the budget-20000 bank scanner; then read the launch counts and require
    equal results from the host construction, the plain versions, the
    match oracle, the materialised windows and the whole-sequence mapping;
-6. with ``--profile`` only: trace one compile and one scan per budget and
-   one ``stream`` of the single-pattern phase with ``torch.profiler`` and
-   print where the device time and the host time go.
+6. speculative scanning, launch counts at 0 before each of its own runs
+   and summed after it (the comparison runs and plain-version checks are
+   left out): the bundled bank under
+   ``mode="speculative"`` against ``mode="enumeration"``; the bank and a
+   702-state random DFA (the paper's largest FA) under the default
+   ``mode="auto"`` (18 SFA, 5 enumeration, 1 speculative pattern) against
+   enumeration, its ``SpeculationStats`` against the same executor through
+   the plain versions; the 702-state pattern alone; an explicit profile of
+   states no chunk is entered in, 2 repairs a lane; a 64-piece stream of
+   the long sequence against its scan and the whole-sequence walk; the
+   walls and stats are printed, and the walk from explicit starts
+   (counted apart, ``ops.form_launches``) and ``spec_resolve`` must have
+   launched;
+7. the scan service, launch counts as in 6: ``Scanner.service`` with an
+   artifact store coalescing four overlapping requests of 4,096 docs, each
+   answer equal to a direct scan; a compile under the shared SFA cache
+   twice (23 hits and 0 rounds the second time); a fresh cache preloaded
+   from the store; a ``CorpusJob`` of 8 shards killed after 3 and resumed,
+   byte-identical to the straight scan, its ``jobs.*`` flight totals equal
+   to an uninterrupted job's; the main path's four kernels must have
+   launched;
+8. with ``--profile`` only: trace one compile and one scan per budget, one
+   ``stream`` of the single-pattern phase, the speculative phase's repeat
+   scans beside enumeration's and its stream with ``torch.profiler`` (the
+   port's ``obs`` spans included) and print where the device time and the
+   host time go.
+
+Every compile that measures or compares a construction passes
+``cache="off"``: under the default shared SFA cache, a repeat compile is a
+lookup.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. It exits non-zero
@@ -58,6 +87,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,11 +107,23 @@ STREAM_PIECES = 64
 ORACLE_LEN = 1 << 18                 # prefix held against the match oracle
 CLOSE_TILE = 4096                    # construct_sfa_vectorized's tile
 
+# The speculative phase: the paper's largest FA (702 states) beside the
+# bundled bank, speculated from m = 8 boundary states a chunk.
+SPEC_STATES, SPEC_SEED, SPEC_M = 702, 7, 8
+SPEC_ID = "R702"
+# The service phase: four requests of overlapping bundled subsets and
+# 4,096 docs each; a corpus job of 8 shards of 8,192 docs, 3 before a kill.
+SERVICE_DOCS, JOB_SHARD_DOCS, JOB_FIRST = 4096, 8192, 3
+
 #: Kernels each path must launch.
 MAIN_KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks",
                 "compose")
 SINGLE_KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks",
                   "compose", "match_chunks", "fingerprint")
+#: The speculative path counts its walks from explicit starts apart
+#: (``ops.form_launches``), so it can tell them from enumeration walks.
+SPEC_KERNELS = ("match_bank_chunks.starts", "spec_resolve")
+SERVICE_KERNELS = MAIN_KERNELS
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the int32 ALU
 #: rate: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, a quarter of the
@@ -300,15 +342,18 @@ def kernel_cases(torch, ops, ref, dev):
     return cases + match_cases(torch, ops, ref, dev, ids)
 
 
-def staged_share(torch, tables, chunks, n_starts: int, rows: int) -> float:
-    """Share of a walk's lookups that fall on table rows < ``rows`` (the
-    rows the kernel stages in shared memory), walked on the card."""
+def staged_share(torch, tables, chunks, n_starts: int, rows: int,
+                 starts=None) -> float:
+    """Share of a walk's lookups (from states 0 .. n_starts-1, or from
+    ``starts`` (P, n_starts)) that fall on table rows < ``rows`` (the rows
+    the kernel stages in shared memory), walked on the card."""
     P = tables.shape[0]
     B, L = chunks.shape
     if not rows:
         return 0.0
     pr = torch.arange(P, device=tables.device)[:, None, None]
-    v = torch.arange(n_starts, device=tables.device).expand(P, B, n_starts)
+    v = (torch.arange(n_starts, device=tables.device) if starts is None
+         else starts.to(torch.int64)[:, None, :]).expand(P, B, n_starts)
     syms = chunks.to(torch.int64)
     staged = torch.zeros((), dtype=torch.int64, device=tables.device)
     for t in range(L):
@@ -318,19 +363,20 @@ def staged_share(torch, tables, chunks, n_starts: int, rows: int) -> float:
 
 
 def walk_case(torch, ops, kernel, label, branch, tables, ch, ns, run,
-              plain) -> dict:
-    """A chunk-walk case. It names the branch its plan must take (``smem``:
-    the whole table staged; ``smem + L2``: rows >= R read from global
-    memory); the wrapper's plan is held to it, and the plan and the share of
-    lookups on staged rows are printed."""
+              plain, starts=None) -> dict:
+    """A chunk-walk case (from ``starts`` (P, ns) where given). It names
+    the branch its plan must take (``smem``: the whole table staged;
+    ``smem + L2``: rows >= R read from global memory); the wrapper's plan is
+    held to it, and the plan and the share of lookups on staged rows are
+    printed."""
     P, n, _ = tables.shape
     B, L = ch.shape
-    plan = ops.match_plan_of(tables, ch, ns)
+    plan = ops.match_plan_of(tables, ch, ns, from_starts=starts is not None)
     check(plan.branch == branch,
           f"{kernel} {label}: plan branch {plan.branch!r}, expected "
           f"{branch!r}")
     share = (1.0 if not plan.global_rows else
-             staged_share(torch, tables, ch, ns, plan.rows))
+             staged_share(torch, tables, ch, ns, plan.rows, starts))
     print(f"[plan] {kernel:18s} {label:40s} {plan.branch:9s} "
           f"R = {plan.rows}/{n} rows, {plan.threads} threads x "
           f"{plan.chains} chains, {plan.patterns} tables a block, "
@@ -498,6 +544,83 @@ def form_cases(torch, ops, ref, dev):
     return cases
 
 
+def spec_cases(torch, ops, ref, dev):
+    """The speculative scan's two launches at its shape (24 patterns of 702
+    states, m = 8, 65,536 docs x 8 chunks of 48): the m-lane walk from
+    explicit start states, then ``spec_resolve`` on its exits under a
+    profile that hits every chunk and one that misses every chunk with 2
+    repairs a lane (so lanes stay unresolved); and a ragged edge of each."""
+    rng = np.random.default_rng(SEED + 2)
+
+    def ids(lo, hi, shape):
+        return torch.from_numpy(
+            rng.integers(lo, hi, shape).astype(np.int32)).to(dev)
+
+    cases = []
+    C, Lc, m = N_CHUNKS, DOC_LEN // N_CHUNKS, SPEC_M
+    chunks = ids(0, K, (DOCS * C, Lc))
+    for label, (P, n, ch) in (
+            ("explicit starts, 24x702, m = 8", (24, SPEC_STATES, chunks)),
+            ("explicit starts, ragged", (3, 13, ids(0, K, (1001, 7))))):
+        tables, starts = ids(0, n, (P, n, K)), ids(0, n, (P, m))
+        B, L = ch.shape
+        case = walk_case(
+            torch, ops, "match_bank_chunks", label, "smem", tables, ch, m,
+            lambda a=(tables, ch, m, starts): ops.match_bank_chunks(*a),
+            lambda a=(tables, ch, m, starts): ref.match_bank_chunks(*a),
+            starts=starts)
+        case["nbytes"] += 4 * P * m          # the start states
+        cases.append(case)
+
+    # spec_resolve: "hit all" walks tables on states 0 .. m-1 only, all of
+    # them speculated; "miss all" never enters the m speculated states and
+    # repairs at most 2 chunks a lane. The bound counts what the data
+    # needs (``resolve_work``).
+    for label, (P, n, D, ch, rounds, hit) in (
+            ("hit all, 24x702", (24, SPEC_STATES, DOCS, chunks, 8, True)),
+            ("miss all, 2 rounds, 24x702",
+             (24, SPEC_STATES, DOCS, chunks, 2, False)),
+            ("ragged, miss all, 1 round", (3, 13, 143, ids(0, K, (1001, 7)),
+                                           1, False))):
+        C_ = ch.shape[0] // D
+        if hit:
+            tables, spec = ids(0, m, (P, n, K)), torch.arange(
+                m, dtype=torch.int32, device=dev).repeat(P, 1)
+            starts = ids(0, m, (P,))
+        else:
+            tables = ids(0, n - m, (P, n, K))
+            spec = torch.arange(n - m, n, dtype=torch.int32,
+                                device=dev).repeat(P, 1)
+            starts = ids(0, n - m, (P,))
+        exits = ops.match_bank_chunks(tables, ch, m, spec)
+        args = (tables, spec, starts, exits, ch, C_, rounds)
+        nbytes, n_ops = resolve_work(torch, ref, args)
+        cases.append(dict(
+            kernel="spec_resolve", label=label,
+            shape=f"tables {P}x{n}x{K}, {D} docs x {C_} chunks of "
+                  f"{ch.shape[1]}, m {m}, max_rounds {rounds}",
+            run=lambda a=args: ops.spec_resolve(*a),
+            plain=lambda a=args: ref.spec_resolve(*a),
+            library=None, nbytes=nbytes, ops=n_ops))
+    return cases
+
+
+def resolve_work(torch, ref, args) -> tuple:
+    """(bytes, int32 ops) ``spec_resolve`` needs on these inputs, counted
+    from its plain version's outputs: each lane reads its start, one
+    4-byte exit a hit and a chunk's symbols a repair, and writes its final
+    state and flag; a walked chunk costs m compares, a repaired one an
+    address and a load a step."""
+    tables, spec, starts, exits, ch, C, rounds = args
+    P, m = spec.shape
+    D, Lc = ch.shape[0] // C, ch.shape[1]
+    _, resolved, hits, repaired, _ = ref.spec_resolve(*args)
+    hits, repaired = int(hits), int(repaired)
+    stopped = int((~resolved).sum())
+    nbytes = 4 * (P * m + P + hits + repaired * Lc) + 5 * P * D + 24
+    return nbytes, (hits + repaired + stopped) * m + 2 * repaired * Lc
+
+
 def check_expand_limit(torch, ops, dev) -> None:
     """``expand_bank`` stages each table in shared memory, rows padded to
     ``k | 1`` words: a table larger than a block may hold must raise
@@ -578,6 +701,34 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
+class PathLaunches:
+    """The kernel launches of a path's own runs, by kernel (and by form,
+    ``ops.form_launches``): :meth:`run` sets the counts to 0 just before a
+    run of the path and adds them here just after, so the launches of the
+    runs that check the path (plain versions, comparison scans) are left
+    out."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.counts = dict.fromkeys([*ops.launches, *ops.form_launches], 0)
+
+    def run(self, fn):
+        self.ops.reset_launches()
+        out = fn()
+        for counts in (self.ops.launches, self.ops.form_launches):
+            for name, v in counts.items():
+                self.counts[name] += v
+        return out
+
+
+def cold():
+    """Construction settings of every compile that measures or compares a
+    construction: the SFA cache off, so each one constructs."""
+    from repro_torch.engine import ConstructionPolicy
+
+    return ConstructionPolicy(cache="off")
+
+
 def main_path(torch, ops, corpus) -> dict:
     from repro_torch.core.prosite import load_bank
     from repro_torch.engine import Scanner
@@ -588,7 +739,8 @@ def main_path(torch, ops, corpus) -> dict:
     for name, overrides in (("budget 512 (auto)", {}),
                             ("budget 20000 (sfa)",
                              dict(mode="sfa", sfa_state_budget=20_000))):
-        sc, t_compile = timed(torch, lambda: Scanner.compile(bank, **overrides))
+        sc, t_compile = timed(torch, lambda: Scanner.compile(
+            bank, construction=cold(), **overrides))
         res, t_scan = timed(torch, lambda: sc.scan(corpus))
         census, t_census = timed(torch, lambda: sc.census(corpus))
         check(np.array_equal(census, res.counts), f"{name}: census vs scan")
@@ -685,14 +837,15 @@ def twins(torch, corpus, main) -> dict:
                       and np.array_equal(a.fingerprints, b.fingerprints),
                       f"{name}: plain construction gives the same SFAs")
         policy = ConstructionPolicy(fingerprint_backend="plain",
-                                    expand_backend="plain")
+                                    expand_backend="plain", cache="off")
         sc_plain = Scanner.compile(bank, construction=policy, **overrides)
         hits_plain, t_pscan = timed(
             torch, lambda: plain_hits(torch, X, kref, sc_plain, corpus))
         kernel_hits = main["runs"][name]["hits"]
         check(np.array_equal(hits_plain, kernel_hits),
               f"{name}: plain scan hits equal the kernel scan's")
-        sc_ref = Scanner.compile(bank, backend="reference", **overrides)
+        sc_ref = Scanner.compile(bank, backend="reference",
+                                 construction=cold(), **overrides)
         sub = corpus[:REF_DOCS]
         ref_res, t_ref = timed(torch, lambda: sc_ref.scan(sub))
         check(np.array_equal(ref_res.hits, kernel_hits[:, :REF_DOCS])
@@ -739,13 +892,14 @@ def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
 
     ops.reset_launches()
     sc = run("compile", lambda: Scanner.compile(
-        one, mode="sfa", sfa_state_budget=SINGLE_BUDGET,
+        one, mode="sfa", sfa_state_budget=SINGLE_BUDGET, construction=cold(),
         chunking=ChunkPolicy(n_chunks=LOCATE_CHUNKS)))
     bank_sfa = run("construct_sfa engine=jax", lambda: construct_sfa(
         dfa, engine="jax", max_states=SINGLE_BUDGET))
     flags = run("locate", lambda: sc.locate(seq, SINGLE_ID))
     bank = run("compile bank", lambda: Scanner.compile(
-        load_bank(), mode="sfa", sfa_state_budget=SINGLE_BUDGET))
+        load_bank(), mode="sfa", sfa_state_budget=SINGLE_BUDGET,
+        construction=cold()))
     windows = run("census_windows", lambda: bank.census_windows(
         seq, WINDOW, STRIDE))
     before = ops.launches["compose"]
@@ -842,6 +996,309 @@ def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
                                 if profile else None))
 
 
+# --------------------------------------------------------------------------
+# Phase 6: speculative scanning
+# --------------------------------------------------------------------------
+
+
+def spec_stats_dict(st) -> dict:
+    return dict(total_chunks=st.total_chunks, hit_chunks=st.hit_chunks,
+                repaired_chunks=st.repaired_chunks,
+                repair_rounds=st.repair_rounds,
+                fallback_lanes=st.fallback_lanes)
+
+
+def plain_spec_stats(torch, kref, scanner, corpus) -> dict:
+    """The speculative groups of ``scanner`` run again through the plain
+    versions of both launches on the card, from the profiles its scan
+    memoised: the kernels' outputs must equal them, and -> the stats."""
+    from repro_torch.speculative import (
+        SpeculationStats,
+        speculative_bank_finals,
+    )
+
+    total = None
+    head = torch.as_tensor(corpus, device=scanner.device)
+    for g in scanner.groups:
+        if g.mode != "speculative":
+            continue
+        spec = torch.as_tensor(g._spec_profile, device=scanner.device)
+        args = (g.tables, spec, g.starts.to(torch.int32), head, N_CHUNKS,
+                scanner.plan.speculation.max_repair_rounds)
+        kern = speculative_bank_finals(*args)
+        plain = speculative_bank_finals(*args,
+                                        match_fn=kref.match_bank_chunks,
+                                        resolve_fn=kref.spec_resolve)
+        for a, b in zip(kern, plain):
+            check(torch.equal(a, b), "speculative executor: kernels differ "
+                                     "from their plain versions")
+        st = SpeculationStats.of(plain, len(g.indices) * corpus.shape[0]
+                                 * N_CHUNKS)
+        total = st if total is None else total.merged(st)
+    return spec_stats_dict(total)
+
+
+def never_entered(torch, scanner, corpus, m: int) -> dict:
+    """{pattern id: m states} no chunk of ``corpus`` is entered in (by the
+    exact walk from each start; the padded rows beyond a pattern's own
+    states are never entered), or, for a pattern with fewer such states,
+    the least-entered ones: a profile that misses."""
+    (g,) = [g for g in scanner.groups if g.mode == "speculative"]
+    head = torch.as_tensor(corpus, device=scanner.device).to(torch.int64)
+    Pg, n, _ = g.tables.shape
+    Lc = corpus.shape[1] // N_CHUNKS
+    rows = torch.arange(Pg, device=scanner.device)[:, None]
+    cur = g.starts[:, None].expand(Pg, corpus.shape[0])
+    counts = torch.zeros((Pg, n), dtype=torch.int64, device=scanner.device)
+    for c in range(N_CHUNKS):
+        counts.scatter_add_(1, cur, torch.ones_like(cur))
+        for t in range(c * Lc, (c + 1) * Lc):
+            cur = g.tables[rows, cur, head[None, :, t]].to(torch.int64)
+    counts = counts.cpu().numpy()
+    out = {}
+    for j, i in enumerate(g.indices):
+        order = np.lexsort((np.arange(n), counts[j]))
+        out[scanner.ids[i]] = order[:m].astype(np.int32)
+    return out
+
+
+def speculative_path(torch, ops, kref, corpus, seq) -> dict:
+    from repro_torch.core.dfa import random_dfa
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import (
+        ChunkPolicy,
+        ConstructionPolicy,
+        ScanPlan,
+        Scanner,
+        SpeculationPolicy,
+    )
+
+    bank = load_bank()
+    pats = {bank.ids[i]: bank.dfa(i) for i in range(bank.n_patterns)}
+    pats[SPEC_ID] = random_dfa(SPEC_STATES, K, seed=SPEC_SEED)
+    walls, stats = {}, {}
+    path = PathLaunches(ops)
+
+    def run(name, fn):          # a run of the path: timed and counted
+        out, walls[name] = timed(torch, lambda: path.run(fn))
+        return out
+
+    def twin(name, fn):         # a run that checks it: timed only
+        out, walls[name] = timed(torch, fn)
+        return out
+
+    # 1. Forced speculation on the bundled bank, against enumeration.
+    forced = run("forced: compile", lambda: Scanner.compile(bank, ScanPlan(
+        mode="speculative", construction=ConstructionPolicy(cache="off"))))
+    got1 = run("forced: scan", lambda: forced.scan(corpus))
+    run("forced: repeat scan", lambda: forced.scan(corpus))
+    enum1 = twin("enumeration: compile", lambda: Scanner.compile(
+        bank, mode="enumeration"))
+    want1 = twin("enumeration: scan", lambda: enum1.scan(corpus))
+    check(np.array_equal(got1.hits, want1.hits),
+          "forced speculation: hits equal enumeration's")
+    stats["forced"] = spec_stats_dict(got1.speculation)
+    check(plain_spec_stats(torch, kref, forced, corpus) == stats["forced"],
+          "forced speculation: stats equal the plain versions'")
+
+    # 2. The auto tier at the paper's scale: the bundled bank and the
+    # 702-state DFA, budget 512, cache off (the construction is timed).
+    auto = run("auto: compile", lambda: Scanner.compile(
+        pats, construction=ConstructionPolicy(cache="off")))
+    modes = list(auto.pattern_modes.values())
+    check((modes.count("sfa"), modes.count("enumeration"),
+           modes.count("speculative")) == (18, 5, 1)
+          and auto.pattern_modes[SPEC_ID] == "speculative",
+          "auto tier: 18 SFA, 5 enumeration and the 702-state pattern "
+          "speculative")
+    got2 = run("auto: scan", lambda: auto.scan(corpus))
+    run("auto: repeat scan", lambda: auto.scan(corpus))
+    # Bucketed, so the 702-state table is a group of its own and the 23
+    # others are not padded to it.
+    enum2 = twin("auto, enumeration: compile", lambda: Scanner.compile(
+        pats, mode="enumeration", chunking=ChunkPolicy(bucket=True)))
+    want2 = twin("auto, enumeration: scan", lambda: enum2.scan(corpus))
+    check(np.array_equal(got2.hits, want2.hits),
+          "auto tier: hits equal enumeration's")
+    stats["auto"] = spec_stats_dict(got2.speculation)
+    check(plain_spec_stats(torch, kref, auto, corpus) == stats["auto"],
+          "auto tier: stats equal the plain versions'")
+    # The 702-state pattern alone, speculative against enumeration.
+    one = {SPEC_ID: pats[SPEC_ID]}
+    alone = run("702 alone: speculative compile",
+                lambda: Scanner.compile(one, mode="speculative"))
+    run("702 alone: speculative scan", lambda: alone.scan(corpus))
+    got3 = run("702 alone: repeat speculative scan",
+               lambda: alone.scan(corpus))
+    enum3 = Scanner.compile(one, mode="enumeration")
+    want3 = twin("702 alone: enumeration scan", lambda: enum3.scan(corpus))
+    check(np.array_equal(got3.hits, want3.hits),
+          "702 alone: hits equal enumeration's")
+    stats["702 alone"] = spec_stats_dict(got3.speculation)
+
+    # 3. An adversarial profile: states no chunk is entered in, 2 repairs.
+    profile = never_entered(torch, forced, corpus, SPEC_M)
+    adv = run("adversarial: compile", lambda: Scanner.compile(bank, ScanPlan(
+        mode="speculative", speculation=SpeculationPolicy(
+            profile_source=profile, max_repair_rounds=2))))
+    got4 = run("adversarial: scan", lambda: adv.scan(corpus))
+    stats["adversarial"] = spec_stats_dict(got4.speculation)
+    check(np.array_equal(got4.hits, want1.hits)
+          and got4.speculation.repaired_chunks > 0
+          and got4.speculation.fallback_lanes > 0,
+          "adversarial profile: hits unchanged, chunks repaired and lanes "
+          "falling back")
+
+    # 4. A 64-piece stream of the long sequence through the auto scanner.
+    pieces = np.array_split(seq, STREAM_PIECES)
+    streamed = run("auto: stream", lambda: auto.stream(pieces))
+    whole = twin("auto: scan of the whole sequence",
+                 lambda: auto.scan([seq]))
+    walk = twin("auto: mapping of the whole sequence",
+                lambda: auto.mapping(seq))
+    starts = np.asarray([d.start for d in auto._dfas])
+    check(streamed.n_symbols == SEQ_LEN and streamed.mapping is None
+          and np.array_equal(streamed.accepted, whole.hits[:, 0])
+          and np.array_equal(streamed.final_states,
+                             walk[np.arange(len(starts)), starts]),
+          "stream equals the scan and the whole-sequence walk")
+    stats["stream"] = spec_stats_dict(streamed.speculation)
+    launches = path.counts
+
+    for name, wall in walls.items():
+        print(f"[speculative] {name}: {wall:.4f} s", flush=True)
+    for name, st in stats.items():
+        print(f"[speculative] stats {name}: {st}", flush=True)
+    print(f"[speculative] kernel launches in the speculative path's own "
+          f"runs: {launches}", flush=True)
+    for name in SPEC_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the speculative path")
+    return dict(walls=walls, stats=stats, launches=launches,
+                modes={"sfa": 18, "enumeration": 5, "speculative": 1})
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the scan service, the SFA cache and a resumable corpus job
+# --------------------------------------------------------------------------
+
+
+def service_path(torch, ops, corpus, workdir) -> dict:
+    import os.path as osp
+
+    from repro_torch import obs
+    from repro_torch.construction import SFACache, shared_cache
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import ConstructionPolicy, Scanner
+    from repro_torch.scanservice import (
+        ArtifactStore,
+        CorpusJob,
+        CorpusManifest,
+    )
+
+    bank = load_bank()
+    ids = list(bank.ids)
+    walls = {}
+    path = PathLaunches(ops)
+
+    def run(name, fn):          # a run of the path: timed and counted
+        out, walls[name] = timed(torch, lambda: path.run(fn))
+        return out
+
+    def twin(name, fn):         # a run that checks it: timed only
+        out, walls[name] = timed(torch, fn)
+        return out
+
+    store_dir = osp.join(workdir, "store")
+    # 1. Four overlapping requests, one flush, each answer a direct scan.
+    requests = [(ids[6 * r: 6 * r + 11],
+                 corpus[r * SERVICE_DOCS // 2:
+                        r * SERVICE_DOCS // 2 + SERVICE_DOCS])
+                for r in range(4)]
+    with Scanner.service(store_dir=store_dir) as svc:
+        tickets = [svc.submit(p, list(d)) for p, d in requests]
+        run("service: flush of 4 requests", svc.flush)
+        sched = svc.scheduler.stats
+        for t, (p, d) in zip(tickets, requests):
+            want = Scanner.compile(p, construction=cold()).scan(d)
+            check(np.array_equal(t.result().hits, want.hits),
+                  "service: a coalesced answer equals a direct scan")
+    check(sched.flushes == 1 and sched.union_patterns == len(
+        set(sum((p for p, _ in requests), []))),
+        "service: one flush of the union bank")
+
+    # 2. The shared cache: a cold compile, then one answered from it.
+    shared_cache().clear()
+    cold_sc = run("compile, cache shared, cold", lambda: Scanner.compile(
+        bank, construction=ConstructionPolicy(cache="shared")))
+    warm_sc = run("compile, cache shared, warm", lambda: Scanner.compile(
+        bank, construction=ConstructionPolicy(cache="shared")))
+    r = warm_sc.construction_report
+    check(cold_sc.construction_report.rounds > 0 and r.cache_hits == 23
+          and r.rounds == 0 and r.constructed == 0,
+          "a second compile under the shared cache: 23 hits, 0 rounds")
+
+    # 3. A fresh cache preloaded from the service's store.
+    fresh = SFACache(backing=ArtifactStore(store_dir))
+    promoted = fresh.preload()
+    check(promoted > 0 and fresh.info.disk_hits == promoted,
+          "a fresh cache preloads the store (disk hits)")
+
+    # 4. A corpus job, killed after 3 of 8 shards and resumed, against a
+    # straight scan and an uninterrupted job.
+    docs = list(corpus)
+    man = CorpusManifest.from_docs(docs, shard_docs=JOB_SHARD_DOCS)
+    plan_kw = dict(construction=ConstructionPolicy(cache=fresh))
+
+    def job(name):
+        from repro_torch.engine import ScanPlan
+
+        return CorpusJob(bank, man, osp.join(workdir, name),
+                         plan=ScanPlan(**plan_kw))
+
+    first = job("resumed")
+    rep1 = run("job: first 3 shards", lambda: first.run(
+        max_shards=JOB_FIRST))
+    check(rep1.scanned == JOB_FIRST and not rep1.complete,
+          "job: 3 shards before the kill")
+    del first                                       # the kill
+    resumed = job("resumed")
+    rep2 = run("job: resume", resumed.run)
+    check(rep2.done_before == JOB_FIRST and rep2.complete,
+          "job: the resume scans the rest")
+    straight = twin("job: straight scan", lambda: Scanner.compile(
+        bank, **plan_kw).scan(corpus))
+    agg = resumed.aggregate()
+    check(agg.hits.tobytes() == straight.hits.tobytes()
+          and resumed.census().tobytes() == straight.counts.tobytes(),
+          "job: aggregate hits and census byte-identical to the straight "
+          "scan")
+    whole = job("uninterrupted")
+    twin("job: uninterrupted", whole.run)
+    totals = resumed.flight_totals()["metrics"]
+    check(totals == whole.flight_totals()["metrics"]
+          and totals["jobs.items_scanned"] == DOCS,
+          "job: jobs.* flight totals equal the uninterrupted job's")
+    launches = path.counts
+    for name, wall in walls.items():
+        print(f"[service] {name}: {wall:.4f} s", flush=True)
+    print(f"[service] shared cache: cold compile "
+          f"{cold_sc.construction_report.rounds} rounds, warm compile "
+          f"{r.cache_hits} hits / {r.rounds} rounds; preload {promoted} "
+          f"artifacts; job shards {man.n_shards}, flight totals "
+          f"{ {k: v for k, v in totals.items() if not isinstance(v, dict)} }",
+          flush=True)
+    print(f"[service] kernel launches in the service path's own runs: "
+          f"{launches}; registry scheduler.flushes "
+          f"{obs.snapshot('scheduler').get('scheduler.flushes')}",
+          flush=True)
+    for name in SERVICE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the service path")
+    return dict(walls=walls, launches=launches, preloaded=promoted,
+                cold_rounds=cold_sc.construction_report.rounds)
+
+
 def trace(torch, label: str, fn, n_top: int = 12) -> dict:
     """One traced run of ``fn`` under ``torch.profiler``: its wall, the
     device's busy time, device time by kernel and host time by operation
@@ -858,10 +1315,14 @@ def trace(torch, label: str, fn, n_top: int = 12) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    kernels = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
     host = sorted((e for e in ka if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
+    # A span bridged into the trace (obs's record_function) also appears as
+    # a device range under its own name: not a kernel, so not device time.
+    spans = {e.key for e in host}
+    kernels = sorted((e for e in ka if e.device_type == DeviceType.CUDA
+                      and e.key not in spans),
+                     key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [dict(name=e.key[:90], calls=e.count,
                 device_ms=e.self_device_time_total / 1e3)
@@ -893,11 +1354,43 @@ def profile_main_path(torch, corpus) -> dict:
     for name, overrides in (("budget 512 (auto)", {}),
                             ("budget 20000 (sfa)",
                              dict(mode="sfa", sfa_state_budget=20_000))):
-        sc = Scanner.compile(bank, **overrides)
-        for phase, fn in (("compile", lambda: Scanner.compile(bank,
-                                                              **overrides)),
+        sc = Scanner.compile(bank, construction=cold(), **overrides)
+        for phase, fn in (("compile", lambda: Scanner.compile(
+                              bank, construction=cold(), **overrides)),
                           ("scan", lambda: sc.scan(corpus))):
             out[f"{name} {phase}"] = trace(torch, f"{name} {phase}", fn)
+    return out
+
+
+def profile_speculative(torch, corpus, seq) -> dict:
+    """Device-time breakdown of the speculative phase's scans (their
+    repeats, the profile memoised) beside enumeration's, and of its
+    stream."""
+    from repro_torch.core.dfa import random_dfa
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import ChunkPolicy, Scanner
+
+    bank = load_bank()
+    pats = {bank.ids[i]: bank.dfa(i) for i in range(bank.n_patterns)}
+    pats[SPEC_ID] = random_dfa(SPEC_STATES, K, seed=SPEC_SEED)
+    one = {SPEC_ID: pats[SPEC_ID]}
+    scanners = {
+        "forced": Scanner.compile(bank, mode="speculative"),
+        "enumeration": Scanner.compile(bank, mode="enumeration"),
+        "auto": Scanner.compile(pats, construction=cold()),
+        "auto, enumeration": Scanner.compile(
+            pats, mode="enumeration", chunking=ChunkPolicy(bucket=True)),
+        "702 alone": Scanner.compile(one, mode="speculative"),
+        "702 alone, enumeration": Scanner.compile(one, mode="enumeration"),
+    }
+    out = {}
+    for name, sc in scanners.items():
+        sc.scan(corpus)                          # the profile, memoised
+        out[f"{name} scan"] = trace(torch, f"speculative phase: {name} scan",
+                                    lambda: sc.scan(corpus))
+    pieces = np.array_split(seq, STREAM_PIECES)
+    out["auto stream"] = trace(torch, "speculative phase: auto stream",
+                               lambda: scanners["auto"].stream(pieces))
     return out
 
 
@@ -947,7 +1440,8 @@ def main(argv=None) -> int:
     check_expand_limit(torch, ops, dev)
     kernel_results = run_kernel_checks(
         torch, kernel_cases(torch, ops, kref, dev)
-        + form_cases(torch, ops, kref, dev))
+        + form_cases(torch, ops, kref, dev)
+        + spec_cases(torch, ops, kref, dev))
 
     corpus = np.random.default_rng(SEED).integers(
         0, K, (DOCS, DOC_LEN), dtype=np.int32)
@@ -957,7 +1451,16 @@ def main(argv=None) -> int:
     twin_res = twins(torch, corpus, main_res)
     seq = np.random.default_rng(SEED).integers(0, K, SEQ_LEN, dtype=np.int32)
     single_res = single_path(torch, ops, kref, seq, args.profile)
-    prof_res = profile_main_path(torch, corpus) if args.profile else None
+    spec_res = speculative_path(torch, ops, kref, corpus, seq)
+    with tempfile.TemporaryDirectory() as workdir:
+        service_res = service_path(torch, ops, corpus, workdir)
+    prof_res = None
+    if args.profile:
+        from repro_torch import obs
+
+        obs.configure(profiler_annotations=True)   # spans in the traces
+        prof_res = profile_main_path(torch, corpus)
+        prof_res.update(profile_speculative(torch, corpus, seq))
 
     csrc, tpu = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     sources = {
@@ -970,13 +1473,18 @@ def main(argv=None) -> int:
         "match_chunks": (f"{csrc}/match_chunks.cu",
                          f"{tpu}/match_scan.py:72"),
         "fingerprint": (f"{csrc}/fingerprint.cu", f"{tpu}/clmul.py:105"),
+        # No TPU kernel: the reference's validate-and-repair loop is XLA.
+        "spec_resolve": (f"{csrc}/spec_resolve.cu",
+                         "src/repro/speculative/executor.py:94"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         rows = [r for r in kernel_results if r["kernel"] == name]
         head = rows[0]      # the path's first (largest) shape
         by_phase = {"main": main_res["launches"][name],
-                    "single": single_res["launches"][name]}
+                    "single": single_res["launches"][name],
+                    "speculative": spec_res["launches"][name],
+                    "service": service_res["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -987,6 +1495,11 @@ def main(argv=None) -> int:
             cases=[{k: v for k, v in r.items() if k != "kernel"}
                    for r in rows],
         ))
+        if name == "match_bank_chunks":     # of them, walks from starts
+            kernels[-1]["from_starts_by_phase"] = {
+                phase: res["launches"]["match_bank_chunks.starts"]
+                for phase, res in (("speculative", spec_res),
+                                   ("service", service_res))}
 
     if args.out:
         summary = dict(
@@ -996,6 +1509,8 @@ def main(argv=None) -> int:
                   for name, r in main_res["runs"].items()},
             twins=twin_res,
             single=single_res,
+            speculative=spec_res,
+            service=service_res,
             profile=prof_res,
         )
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1,6 +1,7 @@
 """SFA construction in the port: the batched bank closure
 (:func:`construct_bank`), the single-pattern engines (:func:`construct_sfa`
-and friends) and their result types."""
+and friends), their result types and the content-addressed SFA cache
+(:class:`SFACache`)."""
 
 from .batched import (
     BUCKETINGS,
@@ -12,6 +13,7 @@ from .batched import (
     resolve_method,
     round_schedule,
 )
+from .cache import CacheInfo, SFACache, dfa_cache_key, shared_cache
 from .single import (
     ENGINES,
     construct_sfa,

@@ -47,6 +47,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.bucketing import (
     geometric_edges,
     merge_small_buckets,
@@ -84,6 +85,19 @@ _U32MAX = 0xFFFFFFFF
 #: CPU — it follows the device asked for, not what is installed.
 FINGERPRINT_BACKENDS = ("auto", "kernel", "plain")
 EXPAND_BACKENDS = ("auto", "kernel", "plain")
+
+# /metrics HELP descriptions, registered once; callsites publish by name.
+obs.counter("construction.banks", help="construct_bank calls completed")
+obs.counter("construction.patterns", help="patterns constructed in banks")
+obs.counter("construction.rounds", help="batched construction rounds run")
+obs.counter("construction.retries",
+            help="per-pattern fingerprint-collision retries")
+obs.counter("construction.blown",
+            help="patterns abandoned to the state-budget blowup verdict")
+obs.histogram("construction.bank_wall_s",
+              help="construct_bank wall seconds per bank")
+obs.histogram("construction.round_wall_s",
+              help="wall seconds per batched construction round")
 
 #: Size-bucketing modes (see :func:`construct_bank`).
 BUCKETINGS = ("auto", "size", "off")
@@ -478,19 +492,27 @@ def construct_bank(
     if bucket_growth < 2:
         raise ValueError(f"bucket_growth must be >= 2, got {bucket_growth}")
 
-    if method == "loop":
-        result = _construct_loop(
-            dfas, max_states=max_states, max_retries=max_retries,
-            engine=engine, poly_index=poly_index, device=dev,
-        )
-    else:
-        result = _construct_bucketed(
-            dfas, max_states=max_states, tile=tile, max_retries=max_retries,
-            poly_index=poly_index, fp_backend=fp_backend,
-            expand_backend=exp_backend, bucketing=bucketing,
-            bucket_growth=bucket_growth,
-            weight_fn=_weight_fn or _default_weight_fn, device=dev,
-        )
+    with obs.span("construct_bank", patterns=len(dfas), method=method,
+                  bucketing=bucketing):
+        if method == "loop":
+            result = _construct_loop(
+                dfas, max_states=max_states, max_retries=max_retries,
+                engine=engine, poly_index=poly_index, device=dev,
+            )
+        else:
+            result = _construct_bucketed(
+                dfas, max_states=max_states, tile=tile,
+                max_retries=max_retries, poly_index=poly_index,
+                fp_backend=fp_backend, expand_backend=exp_backend,
+                bucketing=bucketing, bucket_growth=bucket_growth,
+                weight_fn=_weight_fn or _default_weight_fn, device=dev,
+            )
+    obs.counter("construction.banks").inc()
+    obs.counter("construction.patterns").inc(len(dfas))
+    obs.counter("construction.rounds").inc(result.stats.rounds)
+    obs.counter("construction.retries").inc(int(result.stats.retries.sum()))
+    obs.counter("construction.blown").inc(int(result.blown.sum()))
+    obs.histogram("construction.bank_wall_s").observe(result.stats.wall_time_s)
     if on_blowup == "raise":
         result.require_all()
     return result
@@ -556,13 +578,16 @@ def _construct_bucketed(dfas, *, max_states, tile, max_retries, poly_index,
             # bucket-local; weight fns must derive weights from it alone.
             return weight_fn(_idx[p], attempt, n_words, consts)
 
-        sub = _construct_batched(
-            sub_dfas, max_states=max_states, tile=tile,
-            max_retries=max_retries, poly_index=poly_index,
-            fp_backend=fp_backend, expand_backend=expand_backend,
-            bucket_growth=bucket_growth, weight_fn=sub_weight_fn,
-            device=device,
-        )
+        with obs.span("construct_bank.bucket", edge=int(edge),
+                      n_patterns=len(idx),
+                      n_max=max(d.n_states for d in sub_dfas)):
+            sub = _construct_batched(
+                sub_dfas, max_states=max_states, tile=tile,
+                max_retries=max_retries, poly_index=poly_index,
+                fp_backend=fp_backend, expand_backend=expand_backend,
+                bucket_growth=bucket_growth, weight_fn=sub_weight_fn,
+                device=device,
+            )
         ii = np.asarray(idx, dtype=np.int64)
         stats.pattern_rounds[ii] = sub.stats.pattern_rounds
         stats.retries[ii] = sub.stats.retries
@@ -727,24 +752,29 @@ def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
 
         # The round runs on the bucket's own copies (padding rows repeat the
         # first active pattern and are never written back).
-        o_states, o_fp_hi, o_fp_lo, o_delta, o_n, o_frontier, o_coll = (
-            _bucket_round(
-                tables[idx], states[idx], fp_hi[idx], fp_lo[idx], delta[idx],
-                n_states[idx], frontier[idx], tensor(act_np), weights[idx],
-                limbs[idx], masks[idx],
-                tile=tile, k=k, capacity=capacity,
-                fp_backend=fp_backend, expand_backend=expand_backend,
+        round_t0 = time.perf_counter()
+        with obs.span("construction.round", round=stats.rounds,
+                      bucket=bucket, capacity=capacity):
+            o_states, o_fp_hi, o_fp_lo, o_delta, o_n, o_frontier, o_coll = (
+                _bucket_round(
+                    tables[idx], states[idx], fp_hi[idx], fp_lo[idx],
+                    delta[idx], n_states[idx], frontier[idx], tensor(act_np),
+                    weights[idx], limbs[idx], masks[idx],
+                    tile=tile, k=k, capacity=capacity,
+                    fp_backend=fp_backend, expand_backend=expand_backend,
+                )
             )
-        )
-        m = act.size
-        states[live] = o_states[:m]
-        fp_hi[live] = o_fp_hi[:m]
-        fp_lo[live] = o_fp_lo[:m]
-        delta[live] = o_delta[:m]
-        n_states[live] = o_n[:m]
-        frontier[live] = o_frontier[:m]
-        flags = torch.stack(
-            [o_n[:m], o_frontier[:m], o_coll[:m].to(torch.int64)]).cpu()
+            m = act.size
+            states[live] = o_states[:m]
+            fp_hi[live] = o_fp_hi[:m]
+            fp_lo[live] = o_fp_lo[:m]
+            delta[live] = o_delta[:m]
+            n_states[live] = o_n[:m]
+            frontier[live] = o_frontier[:m]
+            flags = torch.stack(
+                [o_n[:m], o_frontier[:m], o_coll[:m].to(torch.int64)]).cpu()
+        obs.histogram("construction.round_wall_s").observe(
+            time.perf_counter() - round_t0)
         n_states_h[act] = flags[0].numpy()
         frontier_h[act] = flags[1].numpy()
         coll_np = flags[2].numpy().astype(bool)

@@ -13,8 +13,8 @@
   :func:`~.batched.construct_bank`, so the engine lists of the two packages
   match.
 
-All engines give bit-identical SFAs. The reference's content-addressed
-``SFACache`` is not ported yet: ``cache`` takes only ``None``/``"off"``.
+All engines give bit-identical SFAs, so a :class:`~.cache.SFACache` entry
+answers :func:`construct_sfa` whichever engine built it.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from .stores import (
     HashChainStore,
     SortedFingerprintStore,
 )
-from .types import SFA, FingerprintCollision, SFAStats
+from .types import SFA, FingerprintCollision, SFAStats, StateBlowup
 from .worklist import close_bulk, close_scalar
 
 #: Single-pattern engines, as the reference's construction plan names them.
@@ -117,14 +117,34 @@ def construct_sfa(
     ``poly_index`` is the base of the retry sequence (attempt ``a`` uses
     polynomial ``poly_index + a``), matching ``construct_bank``'s.
 
-    ``device`` is where the ``"vectorized"`` and ``"jax"`` engines run;
-    ``"sequential"`` runs on the host. ``kwargs`` go to the engine.
+    ``cache`` optionally names a :class:`~.cache.SFACache` (or
+    ``"shared"``: :func:`~.cache.shared_cache`; ``None``/``"off"``: none)
+    consulted before and filled after construction; a cached blowup at an
+    equal or larger budget raises :class:`~.types.StateBlowup` without
+    constructing. ``device`` is where the ``"vectorized"`` and ``"jax"``
+    engines run; ``"sequential"`` runs on the host. ``kwargs`` go to the
+    engine.
     """
-    if cache not in (None, "off"):
-        raise NotImplementedError(
-            "the construction cache is not ported yet; pass cache=None")
+    from .cache import SFACache, shared_cache
+
+    if cache == "shared":
+        cache = shared_cache()
+    elif cache is None or cache == "off":
+        cache = None
+    elif not isinstance(cache, SFACache):
+        raise ValueError(f"cache must be an SFACache, 'shared', 'off' or "
+                         f"None, got {cache!r}")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
+    base_poly = nth_poly_low(poly_index)
+    if cache is not None:
+        hit, sfa = cache.lookup(dfa, max_states=max_states,
+                                poly_low=base_poly)
+        if hit == "sfa":
+            return sfa
+        if hit == "blowup":  # known to exceed this budget: fail fast
+            raise StateBlowup(
+                f"SFA exceeds {max_states} states (cached blowup)")
     if engine != "sequential":
         kwargs["device"] = device
     build = {
@@ -133,10 +153,19 @@ def construct_sfa(
         "jax": _construct_sfa_bank,
     }[engine]
     last: Exception | None = None
-    for attempt in range(max_retries):
-        try:
-            return build(dfa, poly_index=poly_index + attempt,
-                         max_states=max_states, **kwargs)
-        except FingerprintCollision as e:  # pragma: no cover (rare)
-            last = e
+    try:
+        for attempt in range(max_retries):
+            try:
+                sfa = build(dfa, poly_index=poly_index + attempt,
+                            max_states=max_states, **kwargs)
+            except FingerprintCollision as e:  # pragma: no cover (rare)
+                last = e
+                continue
+            if cache is not None:
+                cache.store(dfa, sfa, poly_low=base_poly)
+            return sfa
+    except StateBlowup:
+        if cache is not None:
+            cache.store_blowup(dfa, max_states, poly_low=base_poly)
+        raise
     raise last  # pragma: no cover

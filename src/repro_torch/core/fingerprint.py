@@ -232,17 +232,34 @@ U32_MASK = 0xFFFFFFFF
 
 
 def clmul32(a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """Carry-less 32x32 -> 64-bit multiply, bit-sliced over 32 steps.
+    """Carry-less 32x32 -> 64-bit multiply.
 
-    ``a``/``b``: int64 tensors of u32 values (broadcastable). Each step masks
-    on bit i of ``b`` and XOR-accumulates ``a << i``; with int64 the whole
-    63-bit product fits one accumulator, split into (hi, lo) at the end.
+    ``a``/``b``: int64 tensors of u32 values (broadcastable); with int64 the
+    whole 63-bit product fits one accumulator, split into (hi, lo) at the
+    end. The product commutes, so the smaller operand (a bank's fold
+    weights, not its words) is the one taken apart: a table of its products
+    with every 4-bit value, built at its own size; each of the other
+    operand's eight nibbles is then one lookup, shifted and XOR-accumulated.
     """
-    a, b = torch.broadcast_tensors(a, b)
-    acc = torch.zeros_like(a)
-    for i in range(32):
-        mask = -((b >> i) & 1)           # 0 or all ones (int64, no wrap)
-        acc ^= (a << i) & mask
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if a.numel() < b.numel():
+        a, b = b, a
+    a = a.expand(shape)   # neither operand need have the broadcast shape
+    b = b.reshape((1,) * (len(shape) - b.dim()) + tuple(b.shape))
+    x = torch.arange(16, dtype=torch.int64, device=a.device)
+    table = torch.zeros(b.shape + (16,), dtype=torch.int64, device=a.device)
+    for bit in range(4):
+        table ^= (b[..., None] << bit) & -((x >> bit) & 1)
+    table = table.expand(shape + (16,))
+    acc = torch.zeros(shape, dtype=torch.int64, device=a.device)
+    nib = torch.empty(shape + (1,), dtype=torch.int64, device=a.device)
+    term = torch.empty_like(nib)
+    for j in range(8):
+        torch.bitwise_right_shift(a[..., None], 4 * j, out=nib)
+        nib &= 15
+        torch.gather(table, -1, nib, out=term)
+        term <<= 4 * j
+        acc ^= term[..., 0]
     return acc >> 32, acc & U32_MASK
 
 

@@ -1,6 +1,7 @@
 """The port's scan engine: plans, executors, streaming and the ``Scanner``
 facade."""
 
-from .plan import ChunkPolicy, ConstructionPolicy, ScanPlan
+from ..speculative import SpeculationStats
+from .plan import ChunkPolicy, ConstructionPolicy, ScanPlan, SpeculationPolicy
 from .scanner import ConstructionReport, PatternGroup, ScanResult, Scanner
 from .streaming import StreamResult, StreamSession

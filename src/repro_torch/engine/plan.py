@@ -5,41 +5,41 @@ device, chunking, construction — while the :class:`~.scanner.Scanner` says
 *what* to scan. The fields follow the reference package's plan; this slice
 of the port carries the subset it runs:
 
-* ``mode``: ``"auto"``, ``"sfa"`` or ``"enumeration"`` (speculation is a
-  later slice: a pattern ``"auto"`` would send there raises
-  ``NotImplementedError``);
+* ``mode``: ``"auto"``, ``"sfa"``, ``"enumeration"`` or
+  ``"speculative"``;
 * ``backend``: ``"kernel"`` (the CUDA chunk-matching kernel through
   :mod:`..kernels.ops`; its plain version for a CPU device) or
   ``"reference"`` (the pure NumPy oracle);
-* ``device``: ``"cuda"`` by default; the tests pass ``"cpu"``.
+* ``device``: ``"cuda"`` by default; the tests pass ``"cpu"``;
+* ``construction``: with the content-addressed SFA cache (``"shared"`` by
+  default, as in the reference) and an optional persistent store;
+* ``speculation``: the reference's :class:`SpeculationPolicy`.
+
+Multi-device distribution (the reference's ``distribution``/``mesh``) is a
+later slice.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, replace
 from typing import Any
 
 import torch
 
-MODES = ("auto", "sfa", "enumeration")
+MODES = ("auto", "sfa", "enumeration", "speculative")
 BACKENDS = ("reference", "kernel")
+SPECULATION_SOURCES = ("sample", "store")
 CONSTRUCTION_METHODS = ("auto", "batched", "loop")
 CONSTRUCTION_ENGINES = ("vectorized", "sequential", "jax")
 CONSTRUCTION_FP_BACKENDS = ("auto", "kernel", "plain")
 CONSTRUCTION_EXPAND_BACKENDS = ("auto", "kernel", "plain")
 CONSTRUCTION_BUCKETINGS = ("auto", "size", "off")
-CONSTRUCTION_CACHES = ("off",)
 
 #: Default SFA state budget for ``mode="auto"``: patterns whose exact SFA
 #: closes within this many states get the paper's single-lookup inner loop;
-#: the rest fall back to enumeration.
+#: the rest fall back to speculation or enumeration.
 DEFAULT_SFA_STATE_BUDGET = 512
-
-#: ``auto``'s blowup tier, as in the reference plan's
-#: ``SpeculationPolicy.auto_states``: a pattern whose SFA blows the budget
-#: and whose DFA has at least this many states goes to speculation, which
-#: this slice of the port does not have yet.
-SPECULATION_AUTO_STATES = 128
 
 
 @dataclass(frozen=True)
@@ -80,8 +80,15 @@ class ConstructionPolicy:
     (batched for at least four patterns, loop for fewer — the reference's
     rule). ``engine``: ``"vectorized"``, ``"sequential"`` or ``"jax"`` (the
     reference's name for the one-pattern bank construction).
-    ``cache``: ``"off"`` — the content-addressed construction cache is a
-    later slice.
+    ``cache``: ``"shared"`` (the process-wide content-addressed
+    :class:`~..construction.SFACache` — recompiling the same patterns
+    performs zero construction rounds), ``"off"``/``None``, or an explicit
+    :class:`~..construction.SFACache` instance. ``store``: an optional
+    persistent tier under the cache, a directory path (wrapped in
+    :class:`~..scanservice.ArtifactStore`) or any object speaking its
+    backing protocol; attached to the resolved cache, so SFAs persist across
+    processes (and across the two packages: the artifacts are the
+    reference's). Ignored when the cache is off.
     ``tile`` / ``max_retries``: frontier states per pattern per round, and
     the per-pattern polynomial retry budget. ``fingerprint_backend`` /
     ``expand_backend``: ``"kernel"``, ``"plain"`` or ``"auto"`` (kernel on a
@@ -92,7 +99,8 @@ class ConstructionPolicy:
     method: str = "auto"
     engine: str = "vectorized"
     tile: int = 128
-    cache: Any = "off"
+    cache: Any = "shared"
+    store: Any = None
     max_retries: int = 4
     fingerprint_backend: str = "auto"
     expand_backend: str = "auto"
@@ -103,7 +111,6 @@ class ConstructionPolicy:
         checks = (
             ("method", self.method, CONSTRUCTION_METHODS),
             ("engine", self.engine, CONSTRUCTION_ENGINES),
-            ("cache", self.cache, CONSTRUCTION_CACHES),
             ("fingerprint_backend", self.fingerprint_backend,
              CONSTRUCTION_FP_BACKENDS),
             ("expand_backend", self.expand_backend,
@@ -123,9 +130,112 @@ class ConstructionPolicy:
             raise ValueError(
                 f"construction bucket_growth must be >= 2, "
                 f"got {self.bucket_growth}")
+        from ..construction import SFACache
+
+        if not (isinstance(self.cache, SFACache)
+                or self.cache in ("shared", "off", None)):
+            raise ValueError(
+                "construction cache must be 'shared', 'off', None, or an "
+                f"SFACache instance, got {self.cache!r}")
+        if not (self.store is None
+                or isinstance(self.store, (str, os.PathLike))
+                or (hasattr(self.store, "get")
+                    and hasattr(self.store, "put_sfa"))):
+            raise ValueError(
+                "construction store must be None, a directory path, or an "
+                "object with the ArtifactStore backing protocol "
+                f"(get/put_sfa/put_blowup), got {self.store!r}")
         return self
 
+    def resolve_store(self):
+        """-> the backing store object, or None. Paths wrap lazily in an
+        :class:`~..scanservice.ArtifactStore`."""
+        if self.store is None:
+            return None
+        if isinstance(self.store, (str, os.PathLike)):
+            from ..scanservice.store import ArtifactStore
+
+            return ArtifactStore(self.store)
+        return self.store
+
+    def resolve_cache(self):
+        """-> the SFACache to consult (with any configured backing store
+        attached), or None when caching is off."""
+        from ..construction import SFACache, shared_cache
+
+        cache = None
+        if isinstance(self.cache, SFACache):
+            cache = self.cache
+        elif self.cache == "shared":
+            cache = shared_cache()
+        if cache is not None:
+            cache.attach_backing(self.resolve_store())
+        return cache
+
     def with_(self, **overrides) -> "ConstructionPolicy":
+        return replace(self, **overrides).validate()
+
+
+@dataclass(frozen=True)
+class SpeculationPolicy:
+    """How ``mode="speculative"`` (and auto's speculative tier) speculates.
+
+    ``m``: speculated boundary states per pattern — every chunk runs from
+    all ``m`` at once, so cost scales with ``m`` where enumeration scales
+    with the automaton's ``n``.
+    ``sample_frac`` / ``max_sample``: how much of the input the hot-state
+    profiler reads when the profile comes from sampling:
+    ``min(max_sample, sample_frac · corpus_size)`` symbols off the corpus
+    prefix.
+    ``max_repair_rounds``: the bound of validate and repair. Each round
+    re-walks exactly one chunk per broken (pattern, doc) lane from its
+    now-known entry state; lanes still unresolved at the bound fall back to
+    enumeration — results stay bit-identical either way.
+    ``profile_source``: ``"sample"`` (profile the first scanned input,
+    memoised per scanner), ``"store"`` (a persisted profile in the plan's
+    ``construction.store`` by the pattern's ``dfa_cache_key``, sampling and
+    persisting on a miss — the scan-service path), a mapping ``{pattern id:
+    state sequence}``, or one explicit state sequence for every pattern.
+    ``auto_states``: the ``auto``-mode tier threshold: a pattern whose SFA
+    blows the state budget goes to speculation only when its DFA has at
+    least this many states; smaller blowup patterns keep enumeration.
+    """
+
+    m: int = 8
+    sample_frac: float = 0.05
+    max_sample: int = 4096
+    max_repair_rounds: int = 8
+    profile_source: Any = "sample"
+    auto_states: int = 128
+
+    def validate(self) -> "SpeculationPolicy":
+        if self.m < 1:
+            raise ValueError(f"speculation m must be >= 1, got {self.m}")
+        if not (0.0 < self.sample_frac <= 1.0):
+            raise ValueError(
+                f"speculation sample_frac must be in (0, 1], "
+                f"got {self.sample_frac}")
+        if self.max_sample < 1:
+            raise ValueError("speculation max_sample must be >= 1")
+        if self.max_repair_rounds < 1:
+            raise ValueError("speculation max_repair_rounds must be >= 1")
+        if self.auto_states < 1:
+            raise ValueError("speculation auto_states must be >= 1")
+        src = self.profile_source
+        if isinstance(src, str):
+            if src not in SPECULATION_SOURCES:
+                raise ValueError(
+                    f"speculation profile_source must be one of "
+                    f"{SPECULATION_SOURCES}, a mapping, or a state sequence; "
+                    f"got {src!r}")
+        elif not (hasattr(src, "keys") or hasattr(src, "__len__")
+                  or hasattr(src, "__iter__")):
+            raise ValueError(
+                "speculation profile_source must be 'sample', 'store', a "
+                f"mapping, or a state sequence, got {src!r}")
+        return self
+
+    def with_(self, **overrides) -> "SpeculationPolicy":
         return replace(self, **overrides).validate()
 
 
@@ -135,9 +245,14 @@ class ScanPlan:
 
     ``mode``: ``"sfa"`` forces SFA matching (every pattern must close under
     ``sfa_state_budget``, else ``StateBlowup``); ``"enumeration"`` forces
-    the all-states mode; ``"auto"`` constructs each pattern's SFA under the
-    budget and falls back to enumeration for those that blow up.
-    ``backend``: ``"kernel"`` or ``"reference"`` (bit-identical).
+    the all-states mode; ``"speculative"`` forces the hot-state speculation
+    executor (no SFA construction); ``"auto"`` constructs each pattern's
+    SFA under the budget and, for those that blow up, speculates when the
+    DFA has at least ``speculation.auto_states`` states and enumerates
+    otherwise.
+    ``backend``: ``"kernel"`` or ``"reference"`` (bit-identical; a
+    speculative group runs the speculative executor under either, as in
+    the reference).
     ``device``: where construction and scans run.
     """
 
@@ -146,6 +261,7 @@ class ScanPlan:
     device: Any = "cuda"
     chunking: ChunkPolicy = field(default_factory=ChunkPolicy)
     construction: ConstructionPolicy = field(default_factory=ConstructionPolicy)
+    speculation: SpeculationPolicy = field(default_factory=SpeculationPolicy)
     sfa_state_budget: int = DEFAULT_SFA_STATE_BUDGET
 
     def validate(self) -> "ScanPlan":
@@ -165,6 +281,7 @@ class ScanPlan:
             raise ValueError("sfa_state_budget must be >= 1")
         self.chunking.validate()
         self.construction.validate()
+        self.speculation.validate()
         return self
 
     def with_(self, **overrides) -> "ScanPlan":

@@ -4,10 +4,12 @@
 (PROSITE id, PROSITE signature, or framework regex), a compiled
 :class:`~..core.dfa.DFA`, a :class:`~..core.multipattern.PatternBank`, or a
 sequence/mapping of those — and a :class:`~.plan.ScanPlan`. Compilation
-resolves each pattern's matching mode (``auto`` builds every SFA under the
-plan's state budget in one batched :func:`~..construction.construct_bank`
-closure and falls back to enumeration for patterns that blow up), stacks the
-per-pattern tables into padded device tensors, and returns a scanner with
+resolves each pattern's matching mode (``auto`` answers each pattern from
+the content-addressed SFA cache where it can and builds the misses under the
+plan's state budget in one :func:`~..construction.construct_bank` closure;
+a pattern that blows up goes to speculation when its DFA is large and to
+enumeration otherwise), stacks the per-pattern tables into padded device
+tensors, and returns a scanner with
 ``scan`` / ``census`` / ``mapping`` / ``accepts``, the one-sequence entry
 points ``locate`` (per-position matches) and ``census_windows`` (all sliding
 windows by prefix scans), and ``stream`` / ``open_stream`` (one input fed
@@ -15,26 +17,53 @@ in pieces).
 
 Scans run on the plan's device: the chunk walks are the CUDA kernel, the
 chunk reduce and the hit read-off are device gathers, and only the
-``(P, D)`` hit matrix comes back to the host. Results are bit-identical to
-the reference package's ``Scanner`` on the same patterns and documents.
+``(P, D)`` hit matrix comes back to the host; a speculative group is an
+m-lane chunk walk and the ``spec_resolve`` kernel
+(:mod:`..speculative`). Results are bit-identical to the reference
+package's ``Scanner`` on the same patterns and documents, its
+:class:`~..speculative.SpeculationStats` and its ``obs`` counters included.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..construction import SFA, StateBlowup, construct_bank, resolve_method
 from ..core.bucketing import partition_by_size
 from ..core.dfa import DFA
 from ..core.multipattern import PatternBank
 from ..device import resolve_device
+from ..speculative import (
+    HotStateProfile,
+    SpeculationStats,
+    profile_hot_states,
+    speculative_bank_finals,
+    stack_profile_states,
+)
 from . import executors as X
-from .plan import SPECULATION_AUTO_STATES, ScanPlan
+from .plan import ScanPlan
 from .streaming import StreamResult, StreamSession
+
+# /metrics HELP descriptions, registered once; hot paths increment by name.
+obs.counter("engine.compiles", help="Scanner.compile calls")
+obs.counter("engine.scans", help="Scanner scan/census calls")
+obs.counter("engine.docs_scanned", help="documents scanned")
+obs.counter("speculative.total_chunks",
+            help="chunks executed speculatively")
+obs.counter("speculative.hit_chunks",
+            help="speculative chunks whose entry state was predicted")
+obs.counter("speculative.repaired_chunks",
+            help="misspeculated chunks re-scanned in the repair loop")
+obs.counter("speculative.repair_rounds", help="repair rounds executed")
+obs.counter("speculative.fallback_lanes",
+            help="lanes handed to the exact enumeration fallback")
+obs.gauge("speculative.hit_rate",
+          help="speculation hit rate of the last scan")
 
 
 # --------------------------------------------------------------------------
@@ -104,13 +133,14 @@ class PatternGroup:
 
     indices: np.ndarray            # positions in the scanner's pattern order
     bank: PatternBank              # sub-bank (host arrays)
-    mode: str                      # "sfa" | "enumeration"
+    mode: str                      # "sfa" | "enumeration" | "speculative"
     tables: torch.Tensor = None    # (Pg, n, k) int32
     accepting: torch.Tensor = None  # (Pg, n) bool
     starts: torch.Tensor = None    # (Pg,) int64
     deltas: torch.Tensor = None    # (Pg, S, k) int32 — stacked SFA tables
     sfa_maps: torch.Tensor = None  # (Pg, S, n) int32 — SFA state -> mapping
     sfa_states: np.ndarray | None = None  # (Pg,) true SFA state counts
+    _spec_profile: Any = field(default=None, repr=False)  # memoised (Pg, m)
 
     @property
     def n(self) -> int:
@@ -144,9 +174,16 @@ def _stack_sfas(sfas: Sequence[SFA], n_max: int) -> tuple:
 
 @dataclass(frozen=True)
 class ConstructionReport:
-    """What ``Scanner.compile`` did to obtain its SFAs."""
+    """What ``Scanner.compile`` did to obtain its SFAs.
+
+    ``rounds`` is zero when every pattern was answered by the cache — the
+    "recompiling the same patterns performs zero construction rounds"
+    contract.
+    """
 
     rounds: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
     constructed: int = 0
     blown: int = 0
     method: str = "none"
@@ -154,54 +191,85 @@ class ConstructionReport:
 
 
 def _resolve_sfas(ids, dfas, plan: ScanPlan, device: torch.device):
-    """Per-pattern mode resolution through one bank construction.
-    -> (modes, {index: SFA}, report)."""
+    """Per-pattern mode resolution: cache lookups first, then one bank
+    construction for the misses. -> (modes, {index: SFA}, report)."""
     P = len(dfas)
     if plan.mode == "enumeration":
         return ["enumeration"] * P, {}, ConstructionReport()
+    if plan.mode == "speculative":
+        # Forced speculation needs no SFA construction at all: the mode
+        # serves the patterns the n^n bound locks out.
+        return ["speculative"] * P, {}, ConstructionReport()
+
     policy = plan.construction
     budget = plan.sfa_state_budget
-    # The reference resolves "auto" here, on the patterns that miss its SFA
-    # cache; with no cache in the port, that is every pattern.
-    method = resolve_method(policy.method, P)
-    result = construct_bank(
-        dfas,
-        max_states=budget,
-        tile=policy.tile,
-        max_retries=policy.max_retries,
-        method=method,
-        engine=policy.engine,
-        fingerprint_backend=policy.fingerprint_backend,
-        expand_backend=policy.expand_backend,
-        bucketing=policy.bucketing,
-        bucket_growth=policy.bucket_growth,
-        device=device,
-    )
-    modes: list = []
-    sfas: dict = {}
-    for i in range(P):
-        if not result.blown[i]:
-            sfas[i] = result.sfas[i]
-            modes.append("sfa")
-        elif plan.mode == "sfa":
+    cache = policy.resolve_cache()
+
+    def fallback(i):
+        if plan.mode == "sfa":
             raise StateBlowup(
                 f"pattern {ids[i]!r}: SFA exceeds the {budget}-state budget "
-                "and mode='sfa' forbids the enumeration fallback")
-        elif dfas[i].n_states >= SPECULATION_AUTO_STATES:
-            raise NotImplementedError(
-                f"pattern {ids[i]!r}: its SFA exceeds the {budget}-state "
-                f"budget and its DFA has {dfas[i].n_states} >= "
-                f"{SPECULATION_AUTO_STATES} states, so mode='auto' would "
-                "scan it speculatively; speculative scanning is a later "
-                "slice of the port (use mode='enumeration' or a larger "
-                "sfa_state_budget)")
+                "and mode='sfa' forbids the enumeration fallback") from None
+        # auto's blowup tier: large automata go speculative (their n-wide
+        # enumeration walks are what speculation avoids); small blowup
+        # patterns keep enumeration.
+        if dfas[i].n_states >= plan.speculation.auto_states:
+            return "speculative"
+        return "enumeration"
+
+    modes: list = [None] * P
+    sfas: dict = {}
+    hits = misses = 0
+    need = []
+    for i, d in enumerate(dfas):
+        kind, sfa = (None, None) if cache is None else cache.lookup(
+            d, max_states=budget)
+        if kind == "sfa":
+            hits += 1
+            sfas[i], modes[i] = sfa, "sfa"
+        elif kind == "blowup":
+            hits += 1
+            modes[i] = fallback(i)
         else:
-            modes.append("enumeration")
-    blown = int(result.blown.sum())
+            misses += 1
+            need.append(i)
+
+    rounds = retries = blown_count = 0
+    method = "none"
+    if need:
+        # The reference's rule on the patterns that miss the cache: a bank
+        # round from four patterns, the per-pattern loop below.
+        method = resolve_method(policy.method, len(need))
+        result = construct_bank(
+            [dfas[i] for i in need],
+            max_states=budget,
+            tile=policy.tile,
+            max_retries=policy.max_retries,
+            method=method,
+            engine=policy.engine,
+            fingerprint_backend=policy.fingerprint_backend,
+            expand_backend=policy.expand_backend,
+            bucketing=policy.bucketing,
+            bucket_growth=policy.bucket_growth,
+            device=device,
+        )
+        rounds = result.stats.rounds
+        retries = int(np.sum(result.stats.retries))
+        for j, i in enumerate(need):
+            if result.blown[j]:
+                blown_count += 1
+                if cache is not None:
+                    cache.store_blowup(dfas[i], budget)
+                modes[i] = fallback(i)
+            else:
+                sfas[i] = result.sfas[j]
+                modes[i] = "sfa"
+                if cache is not None:
+                    cache.store(dfas[i], result.sfas[j])
     report = ConstructionReport(
-        rounds=result.stats.rounds, constructed=P - blown,
-        blown=blown, method=method,
-        retries=int(np.sum(result.stats.retries)),
+        rounds=rounds, cache_hits=hits, cache_misses=misses,
+        constructed=len(need) - blown_count, blown=blown_count,
+        method=method, retries=retries,
     )
     return modes, sfas, report
 
@@ -213,10 +281,16 @@ def _resolve_sfas(ids, dfas, plan: ScanPlan, device: torch.device):
 
 @dataclass(frozen=True)
 class ScanResult:
-    """Hit matrix of a scan: ``hits[p, d]`` iff doc ``d`` matches pattern ``p``."""
+    """Hit matrix of a scan: ``hits[p, d]`` iff doc ``d`` matches pattern ``p``.
+
+    ``speculation`` carries the scan's aggregated
+    :class:`~..speculative.SpeculationStats` when any pattern group ran
+    speculatively (None otherwise).
+    """
 
     hits: np.ndarray      # (P, D) bool
     ids: tuple
+    speculation: Any = None
 
     @property
     def counts(self) -> np.ndarray:
@@ -248,6 +322,10 @@ class Scanner:
         self.n_patterns = len(dfas)
         self.n_max = max(d.n_states for d in dfas)
         self._dfas = dfas
+        self.last_speculation: SpeculationStats | None = None
+        #: trace id of the last traced compile/scan through this scanner —
+        #: the key ``obs.trace_summary`` (and ``describe``) correlates on.
+        self.last_trace_id: str | None = None
         self.pattern_modes = {}
         for g in groups:
             for i in g.indices:
@@ -272,28 +350,36 @@ class Scanner:
             if d.alphabet != alphabet:
                 raise ValueError("all patterns must share one alphabet")
 
-        modes, sfas, report = _resolve_sfas(ids, dfas, plan, device)
-        groups = []
-        for mode in ("sfa", "enumeration"):
-            member = [i for i, m in enumerate(modes) if m == mode]
-            if not member:
-                continue
-            if plan.chunking.bucket:
-                sizes = [
-                    sfas[i].n_states if mode == "sfa" else dfas[i].n_states
-                    for i in member
-                ]
-                parts = partition_by_size(sizes, plan.chunking.bucket_edges,
-                                          overflow="extend")
-                parts = [[member[j] for j in idx] for _, idx in parts]
-            else:
-                parts = [member]
-            for part in parts:
-                groups.append(cls._build_group(
-                    part, [dfas[i] for i in part], [ids[i] for i in part],
-                    mode, [sfas.get(i) for i in part], device,
-                ))
-        return cls(ids, dfas, groups, plan, single, device, report)
+        with obs.span("scanner.compile", patterns=len(dfas),
+                      mode=plan.mode, backend=plan.backend):
+            trace_id = obs.current_trace_id()
+            modes, sfas, report = _resolve_sfas(ids, dfas, plan, device)
+            groups = []
+            for mode in ("sfa", "enumeration", "speculative"):
+                member = [i for i, m in enumerate(modes) if m == mode]
+                if not member:
+                    continue
+                if plan.chunking.bucket:
+                    sizes = [
+                        sfas[i].n_states if mode == "sfa"
+                        else dfas[i].n_states
+                        for i in member
+                    ]
+                    parts = partition_by_size(
+                        sizes, plan.chunking.bucket_edges, overflow="extend")
+                    parts = [[member[j] for j in idx] for _, idx in parts]
+                else:
+                    parts = [member]
+                for part in parts:
+                    groups.append(cls._build_group(
+                        part, [dfas[i] for i in part],
+                        [ids[i] for i in part], mode,
+                        [sfas.get(i) for i in part], device,
+                    ))
+        obs.counter("engine.compiles").inc()
+        scanner = cls(ids, dfas, groups, plan, single, device, report)
+        scanner.last_trace_id = trace_id
+        return scanner
 
     @staticmethod
     def _build_group(indices, dfas, gids, mode, sfas, device) -> PatternGroup:
@@ -379,6 +465,142 @@ class Scanner:
                                            n_chunks)
         return X.bank_doc_mappings(g.tables, head, n_chunks)
 
+    # -- the speculative core ----------------------------------------------
+
+    def _speculation_sample(self, corpus: np.ndarray) -> np.ndarray:
+        """The profiler's symbol sample: a prefix of the flattened corpus
+        sized by the policy's ``sample_frac`` / ``max_sample``."""
+        pol = self.plan.speculation
+        flat = corpus.reshape(-1)
+        s = min(pol.max_sample, max(1, int(pol.sample_frac * flat.size)))
+        return flat[:s]
+
+    def _explicit_profile_states(self, g: PatternGroup, src) -> np.ndarray:
+        """Explicit ``profile_source``: a mapping {pattern id: states} or one
+        state sequence for every pattern. Any states are *correct*
+        (misspeculation only costs repairs)."""
+        pol = self.plan.speculation
+        if hasattr(src, "keys"):
+            rows = []
+            for i in g.indices:
+                pid = self.ids[i]
+                if pid not in src:
+                    raise ValueError(
+                        f"explicit speculation profile is missing pattern "
+                        f"{pid!r}")
+                rows.append(np.asarray(src[pid], dtype=np.int32))
+        else:
+            rows = [np.asarray(src, dtype=np.int32)] * len(g.indices)
+        for r in rows:
+            if r.ndim != 1 or not r.size:
+                raise ValueError(
+                    "explicit speculation profiles must be non-empty 1-D "
+                    "state sequences")
+        profs = [
+            HotStateProfile(states=r, weights=np.zeros(len(r), np.float64),
+                            sample_len=0)
+            for r in rows
+        ]
+        return stack_profile_states(profs, pol.m, g.n)
+
+    def _speculation_profile(self, g: PatternGroup, corpus: np.ndarray
+                             ) -> np.ndarray:
+        """One group's (Pg, m) speculated boundary states.
+
+        ``"sample"`` profiles the first scanned corpus (a bounded
+        ``max_sample``-symbol walk on the host) and memoises the result on
+        the group, so a scanner pays it once, not once a scan; a profile is
+        advisory, and reusing it on other corpora costs repairs, never
+        correctness. ``"store"`` looks the profile up in the plan's
+        persistent :class:`~..scanservice.ArtifactStore` by
+        ``dfa_cache_key`` first, samples on a miss, and persists what it
+        learned; explicit sources bypass profiling.
+        """
+        pol = self.plan.speculation
+        src = pol.profile_source
+        if not isinstance(src, str):
+            return self._explicit_profile_states(g, src)
+        if g._spec_profile is not None:
+            return g._spec_profile
+        store = self.plan.construction.resolve_store() if src == "store" \
+            else None
+        profiles: list = [None] * len(g.indices)
+        keys = None
+        if store is not None and hasattr(store, "get_profile"):
+            from ..construction import dfa_cache_key
+
+            keys = [dfa_cache_key(self._dfas[i]) for i in g.indices]
+            for j, key in enumerate(keys):
+                meta = store.get_profile(key)
+                if meta is not None:
+                    profiles[j] = HotStateProfile.from_json(meta)
+        need = [j for j, pr in enumerate(profiles) if pr is None]
+        if need:
+            sample = self._speculation_sample(corpus)
+            fresh = profile_hot_states(
+                g.bank.tables[need], g.bank.starts[need], sample, pol.m)
+            for j, pr in zip(need, fresh):
+                profiles[j] = pr
+                if keys is not None and hasattr(store, "put_profile"):
+                    store.put_profile(keys[j], pr.to_json())
+        states = stack_profile_states(profiles, pol.m, g.n)
+        g._spec_profile = states
+        return states
+
+    def _group_doc_finals(self, g: PatternGroup, corpus: np.ndarray,
+                          corpus_t: torch.Tensor) -> tuple:
+        """Speculative path: exact final states of every (pattern-in-group,
+        doc) from each pattern's start — (Pg, D) int32 on the device, and
+        the group's :class:`~..speculative.SpeculationStats`.
+
+        Bit-identical to reading the enumeration mappings off at the start
+        states: the executor only adopts chunk results whose entry state it
+        verified exactly, and the docs of any lane the repair bound leaves
+        unresolved go through the enumeration executor here. The ragged
+        tail advances the finals symbol by symbol. One host sync reads the
+        totals.
+        """
+        pol = self.plan.speculation
+        n_chunks = self.plan.chunking.n_chunks
+        D, L = corpus.shape
+        head_len = L - (L % n_chunks)
+        Pg = len(g.indices)
+        starts = g.starts.to(torch.int32)
+        stats = SpeculationStats()
+        with obs.span("speculative.scan", patterns=Pg, docs=D):
+            if head_len:
+                spec = torch.as_tensor(self._speculation_profile(g, corpus),
+                                       device=self.device)
+                head = corpus_t[:, :head_len]
+                out = speculative_bank_finals(
+                    g.tables, spec, starts, head, n_chunks,
+                    pol.max_repair_rounds)
+                finals, resolved = out[0], out[1]
+                stats = SpeculationStats.of(out, Pg * D * n_chunks)
+                if stats.fallback_lanes:
+                    bad = (~resolved).any(dim=0).nonzero()[:, 0]
+                    with obs.span("speculative.fallback",
+                                  lanes=int(bad.numel())):
+                        maps = X.bank_doc_mappings(
+                            g.tables, head[bad].contiguous(), n_chunks)
+                    exact = maps.gather(2, g.starts[:, None, None].expand(
+                        Pg, maps.shape[1], 1))[:, :, 0]
+                    finals[:, bad] = torch.where(resolved[:, bad],
+                                                 finals[:, bad], exact)
+            else:
+                finals = starts[:, None].expand(Pg, D)
+            if head_len < L:
+                finals = X.advance_states_sequential(
+                    g.tables, finals, corpus_t[:, head_len:])
+        obs.counter("speculative.total_chunks").inc(stats.total_chunks)
+        obs.counter("speculative.hit_chunks").inc(stats.hit_chunks)
+        obs.counter("speculative.repaired_chunks").inc(stats.repaired_chunks)
+        obs.counter("speculative.repair_rounds").inc(stats.repair_rounds)
+        obs.counter("speculative.fallback_lanes").inc(stats.fallback_lanes)
+        if stats.total_chunks:
+            obs.gauge("speculative.hit_rate").set(stats.hit_rate)
+        return finals, stats
+
     # -- public scan API ----------------------------------------------------
 
     def scan(self, docs) -> ScanResult:
@@ -386,13 +608,26 @@ class Scanner:
         batches = self._length_batches(docs)
         D = sum(len(idxs) for idxs, _ in batches)
         hits = np.zeros((self.n_patterns, D), dtype=bool)
-        for idxs, corpus in batches:
-            corpus_t = torch.as_tensor(corpus, device=self.device)
-            for g in self.groups:
-                maps = self._group_doc_mappings(g, corpus, corpus_t)
-                acc = X.hits_of_mappings(maps, g.accepting, g.starts)
-                hits[np.ix_(g.indices, idxs)] = acc.cpu().numpy()
-        return ScanResult(hits=hits, ids=self.ids)
+        spec_stats: SpeculationStats | None = None
+        with obs.span("scanner.scan", patterns=self.n_patterns, docs=D):
+            self.last_trace_id = obs.current_trace_id() or self.last_trace_id
+            for idxs, corpus in batches:
+                corpus_t = torch.as_tensor(corpus, device=self.device)
+                for g in self.groups:
+                    if g.mode == "speculative" and corpus.shape[1]:
+                        finals, st = self._group_doc_finals(g, corpus,
+                                                            corpus_t)
+                        spec_stats = st if spec_stats is None \
+                            else spec_stats.merged(st)
+                        acc = g.accepting.gather(1, finals.to(torch.int64))
+                    else:
+                        maps = self._group_doc_mappings(g, corpus, corpus_t)
+                        acc = X.hits_of_mappings(maps, g.accepting, g.starts)
+                    hits[np.ix_(g.indices, idxs)] = acc.cpu().numpy()
+        obs.counter("engine.scans").inc()
+        obs.counter("engine.docs_scanned").inc(D)
+        self.last_speculation = spec_stats
+        return ScanResult(hits=hits, ids=self.ids, speculation=spec_stats)
 
     def census(self, docs) -> np.ndarray:
         """Per-pattern hit counts over a corpus, (P,) int32."""
@@ -401,7 +636,9 @@ class Scanner:
     def mapping(self, doc) -> np.ndarray:
         """Transition function of one whole input under every pattern,
         (P, n_max) int32 on the scanner's padded layout (identity beyond
-        each pattern's true state count)."""
+        each pattern's true state count). Speculative groups compute it
+        through the enumeration executor: a whole transition function needs
+        all n states, so there is nothing for speculation to skip."""
         (_, corpus), = self._length_batches([doc])
         corpus_t = torch.as_tensor(corpus, device=self.device)
         out = np.broadcast_to(
@@ -497,6 +734,20 @@ class Scanner:
             flags[i] = bool(d.accepting[s])
         return flags
 
+    # -- serving ------------------------------------------------------------
+
+    @classmethod
+    def service(cls, store_dir=None, plan: ScanPlan | None = None,
+                **kwargs):
+        """The serving layer's front door: a
+        :class:`~..scanservice.ScanService` whose compiles run through a
+        persistent artifact store at ``store_dir`` (when given) and whose
+        ``submit``/``flush`` coalesce concurrent requests into one bank
+        compile and one fused scan. See :mod:`..scanservice`."""
+        from ..scanservice import ScanService
+
+        return ScanService(store_dir=store_dir, plan=plan, **kwargs)
+
     # -- streaming ----------------------------------------------------------
 
     def open_stream(self) -> StreamSession:
@@ -506,7 +757,8 @@ class Scanner:
     def stream(self, blocks) -> StreamResult:
         """Scan one logically concatenated input delivered as an iterable of
         pieces (strings or encoded int arrays) without holding it whole:
-        equal to ``mapping``/``accepts`` of the concatenation."""
+        equal to ``mapping``/``accepts`` of the concatenation (no mapping
+        when a group runs speculatively)."""
         sess = self.open_stream()
         for b in blocks:
             sess.feed(b)
@@ -522,13 +774,38 @@ class Scanner:
             f"{self.plan.backend}/{self.device}, "
             f"n_chunks={self.plan.chunking.n_chunks})",
             f"  construction: {r.rounds} round(s) via {r.method}, "
+            f"cache {r.cache_hits} hit(s) / {r.cache_misses} miss(es), "
             f"{r.constructed} built, {r.blown} blown",
         ]
         for g in self.groups:
-            extra = (f", S_max={int(g.deltas.shape[1])}" if g.mode == "sfa"
-                     else "")
+            extra = ""
+            if g.mode == "sfa":
+                extra = f", S_max={int(g.deltas.shape[1])}"
+            elif g.mode == "speculative":
+                src = self.plan.speculation.profile_source
+                extra = (f", m={self.plan.speculation.m}, source="
+                         + (repr(src) if isinstance(src, str)
+                            else "explicit"))
             lines.append(f"  group[{g.mode}]: {len(g.indices)} pattern(s), "
                          f"n_max={g.n}{extra}")
+        s = self.last_speculation
+        if s is not None:
+            lines.append(
+                f"  speculation: hit rate {s.hit_rate:.3f} "
+                f"({s.hit_chunks}/{s.total_chunks} chunks), "
+                f"{s.repaired_chunks} repaired in {s.repair_rounds} "
+                f"round(s), {s.fallback_lanes} fallback lane(s)")
+        if self.last_trace_id is not None:
+            summ = obs.trace_summary(self.last_trace_id)
+            if summ["spans"]:
+                lines.append(
+                    f"  last trace {summ['trace_id']}: "
+                    f"{len(summ['spans'])} span(s), "
+                    f"wall {summ['wall_s'] * 1e3:.2f} ms")
+                for sp in summ["spans"][:8]:
+                    lines.append(
+                        f"    {sp['name']}: {sp['wall_s'] * 1e3:.2f} ms "
+                        f"{sp['attrs'] or ''}".rstrip())
         return "\n".join(lines)
 
 

@@ -16,22 +16,28 @@ SFA path's chunk fold is one more). Memory holds one piece plus the
 returns a :class:`StreamResult` whose mapping is bit-identical to
 ``Scanner.mapping`` of the concatenated input.
 
-Speculative groups are a later slice of the port: ``Scanner.compile`` never
-makes one, and a session refuses any group that is not SFA or enumeration.
+Speculative groups carry exact running *states* instead of whole functions:
+each block is one document whose start states are the stream's current
+states. A piece's blocks take one m-lane chunk walk together; each block
+then takes one ``spec_resolve`` launch and one sync, since the next block
+starts where it ends, and its unresolved lanes fall back to the block's
+enumeration mapping at their entry states.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
 
+from ..kernels import ops
+from ..speculative import SpeculationStats
 from . import executors as X
 
 if TYPE_CHECKING:  # pragma: no cover
-    from .scanner import Scanner
+    from .scanner import PatternGroup, Scanner
 
 
 @dataclass(frozen=True)
@@ -39,16 +45,21 @@ class StreamResult:
     """Outcome of a streamed scan over one concatenated input.
 
     ``mapping`` is the input's whole transition function, (P, n_max) on
-    the scanner's padded layout; ``final_states`` the state each pattern
-    ends in; ``accepted`` its accept flag.
+    the scanner's padded layout — ``None`` when any pattern group ran
+    speculatively: the speculative executor tracks exact *states*, not whole
+    functions (that is the saving). ``final_states`` is the state each
+    pattern ends in; ``accepted`` its accept flag; ``speculation`` the
+    stream's aggregated :class:`~..speculative.SpeculationStats` (None
+    without speculation).
     """
 
-    mapping: np.ndarray         # (P, n_max)
+    mapping: np.ndarray | None  # (P, n_max) — None under speculation
     final_states: np.ndarray    # (P,)
     accepted: np.ndarray        # (P,) bool
     n_symbols: int
     ids: tuple
     single: bool = False
+    speculation: Any = None
 
     @property
     def accepts(self):
@@ -60,11 +71,6 @@ class StreamSession:
     """Incremental (push-style) scan; create with ``Scanner.open_stream()``."""
 
     def __init__(self, scanner: "Scanner"):
-        for g in scanner.groups:
-            if g.mode not in ("sfa", "enumeration"):
-                raise NotImplementedError(
-                    f"stream of a {g.mode!r} group: speculative scanning is "
-                    "a later slice of the port")
         self.scanner = scanner
         pol = scanner.plan.chunking
         self.n_chunks = pol.n_chunks
@@ -80,6 +86,16 @@ class StreamSession:
             .expand(len(g.indices), g.n).contiguous()
             for g in scanner.groups
         ]
+        # Speculative groups carry exact running states instead, (Pg,)
+        # int32 on the device, and their hot-state profile, resolved from
+        # the first block.
+        self._state = [
+            g.starts.to(torch.int32) if g.mode == "speculative" else None
+            for g in scanner.groups
+        ]
+        self._spec_prof = [None] * len(scanner.groups)
+        self._spec_stats: SpeculationStats | None = None
+        self._has_spec = any(g.mode == "speculative" for g in scanner.groups)
 
     # -- feeding ------------------------------------------------------------
 
@@ -112,6 +128,9 @@ class StreamSession:
         sc = self.scanner
         blocks_t = torch.as_tensor(blocks, device=sc.device)
         for gi, g in enumerate(sc.groups):
+            if g.mode == "speculative":
+                self._advance_speculative(gi, g, blocks, blocks_t)
+                continue
             if sc.plan.backend == "reference":
                 from .scanner import _reference_doc_mappings
 
@@ -126,6 +145,41 @@ class StreamSession:
             # Apply the prefix first, then the blocks in order: one fold.
             self._prefix[gi] = X.FN.fold(self._prefix[gi], bm)
 
+    def _advance_speculative(self, gi: int, g: "PatternGroup",
+                             blocks: np.ndarray, blocks_t: torch.Tensor
+                             ) -> None:
+        """Advance a speculative group's exact running states through full
+        blocks, in order: each block is one document whose start states are
+        the stream's current states. The hot-state profile is resolved once
+        per session, from the first block (it is advisory; staleness only
+        costs repairs)."""
+        sc = self.scanner
+        pol = sc.plan.speculation
+        C, Pg = self.n_chunks, len(g.indices)
+        prof = self._spec_prof[gi]
+        if prof is None:
+            prof = torch.as_tensor(sc._speculation_profile(g, blocks[:1]),
+                                   device=sc.device)
+            self._spec_prof[gi] = prof
+        chunks = blocks_t.view(-1, self.block_len)     # (n_blocks·C, Lc)
+        exits = ops.match_bank_chunks(g.tables, chunks, prof.shape[1], prof)
+        state = self._state[gi]
+        for b in range(blocks.shape[0]):
+            rows = slice(b * C, (b + 1) * C)
+            out = ops.spec_resolve(
+                g.tables, prof, state, exits[:, rows].contiguous(),
+                chunks[rows], C, pol.max_repair_rounds)
+            finals, resolved = out[0][:, 0], out[1]
+            st = SpeculationStats.of(out, Pg * C)
+            if st.fallback_lanes:
+                bm = X.match_bank_parallel(g.tables, blocks_t[b], C)
+                exact = bm.gather(1, state.to(torch.int64)[:, None])[:, 0]
+                finals = torch.where(resolved[:, 0], finals, exact)
+            state = finals
+            self._spec_stats = st if self._spec_stats is None \
+                else self._spec_stats.merged(st)
+        self._state[gi] = state
+
     # -- finishing ----------------------------------------------------------
 
     def finish(self) -> StreamResult:
@@ -137,24 +191,33 @@ class StreamSession:
         if len(self._buf):
             tail = torch.as_tensor(self._buf, device=sc.device)
             for gi, g in enumerate(sc.groups):
+                if g.mode == "speculative":
+                    self._state[gi] = X.advance_states_sequential(
+                        g.tables, self._state[gi][:, None], tail[None])[:, 0]
+                    continue
                 # Each of the n prefix entries is a state walking the tail.
                 n = self._prefix[gi].shape[1]
                 self._prefix[gi] = X.advance_states_sequential(
                     g.tables, self._prefix[gi], tail.expand(n, len(tail)))
             self._buf = np.zeros(0, dtype=np.int32)
 
-        mapping = np.broadcast_to(
+        mapping = None if self._has_spec else np.broadcast_to(
             np.arange(sc.n_max, dtype=np.int32), (sc.n_patterns, sc.n_max)
         ).copy()
         final_states = np.zeros(sc.n_patterns, dtype=np.int32)
         accepted = np.zeros(sc.n_patterns, dtype=bool)
         for gi, g in enumerate(sc.groups):
-            pref = self._prefix[gi]                          # (Pg, n_g)
-            mapping[g.indices, : g.n] = pref.cpu().numpy()
-            finals = pref.gather(1, g.starts.to(torch.int64)[:, None])
+            if g.mode == "speculative":
+                finals = self._state[gi][:, None]
+            else:
+                pref = self._prefix[gi]                      # (Pg, n_g)
+                if mapping is not None:
+                    mapping[g.indices, : g.n] = pref.cpu().numpy()
+                finals = pref.gather(1, g.starts.to(torch.int64)[:, None])
             accepted[g.indices] = g.accepting.gather(
                 1, finals.to(torch.int64))[:, 0].cpu().numpy()
             final_states[g.indices] = finals[:, 0].cpu().numpy()
+        sc.last_speculation = self._spec_stats or sc.last_speculation
         return StreamResult(
             mapping=mapping,
             final_states=final_states,
@@ -162,4 +225,5 @@ class StreamSession:
             n_symbols=self._n_symbols,
             ids=sc.ids,
             single=sc.single,
+            speculation=self._spec_stats,
         )

@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks", "compose",
-           "match_chunks", "fingerprint")
+           "match_chunks", "fingerprint", "spec_resolve")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"

@@ -3,7 +3,13 @@
 // Computes out[p, b, q] = tables[p] walked from state q over chunks[b, :]
 // for tables (P, n, k), chunks (B, L) -> (P, B, n_starts) int32; a walk is
 // s <- tables[p, s, chunks[b, t]] for t = 0 .. L-1. match_chunks is its
-// P = 1, n_starts = n case.
+// P = 1, n_starts = n case. Given explicit starts (P, n_starts), lane q of
+// pattern p walks from starts[p, q] instead (the speculative scan's m-lane
+// pass from a hot-state profile); only the seed of a chain changes, in its
+// own instantiations (kFrom), so the walks from 0 .. n_starts-1 compile as
+// they did; a start on a row >= R takes the L2 branch like any other step.
+// Walks from explicit starts are always chunk-major, so kFrom is built for
+// the chunk-major layouts only (see launch_j).
 //
 // What bounds it on Hopper: the lookups. Each lane is a chain of L dependent
 // loads (step t+1's address is step t's value), so latency bounds one lane;
@@ -38,7 +44,9 @@
 //   every step. Two ways to put (chunk, start state) lanes on a warp:
 //     chunk-major (n_starts < 32, the SFA path's n_starts = 1): lane item
 //       i = lane + 32 j is chunk i / n_starts, start i % n_starts; a warp
-//       takes floor(32 J / n_starts) chunks;
+//       takes floor(32 J / n_starts) chunks (walks from explicit starts at
+//       n_starts >= 32: chunk j, start g·32 + lane, ceil(n_starts / 32)
+//       groups g);
 //     start-major (n_starts >= 32, enumeration and match_chunks): a warp
 //       takes one chunk and starts q = g·32J + lane + 32 j, so one word read
 //       and one extraction serve all J chains (kOne); more than 32 J starts
@@ -96,6 +104,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const int32_t *tables, *chunks;
+  const int32_t *starts;  // (P, n_starts) start states, or null: q itself
   int32_t *out;
   int P, n, k, L, n_starts;
   int cw, qw, groups, slab_words, stride, rows, pg, n_pgroups;
@@ -267,7 +276,7 @@ __device__ __forceinline__ void walk_word(const Args &a, const char *ts,
   }
 }
 
-template <int SPW, int J, bool kOne, bool kAll>
+template <int SPW, int J, bool kOne, bool kAll, bool kFrom>
 __global__ void __launch_bounds__(512) walk_kernel(const Args a) {
   extern __shared__ int32_t smem[];
   const int row = a.k | 1, tab_words = a.rows * row;
@@ -314,7 +323,12 @@ __global__ void __launch_bounds__(512) walk_kernel(const Args a) {
       const int32_t *tg = a.tables + (size_t)(p0 + pi) * a.n * a.k;
       int s[J];
 #pragma unroll
-      for (int j = 0; j < J; ++j) s[j] = (live[j] ? q[j] : 0) * a.rowb;
+      for (int j = 0; j < J; ++j) {
+        int from = live[j] ? q[j] : 0;
+        if (kFrom && live[j])
+          from = __ldg(a.starts + (size_t)(p0 + pi) * a.n_starts + q[j]);
+        s[j] = from * a.rowb;
+      }
       for (int t0 = 0; t0 < a.L; t0 += slab) {
         const int steps = min(slab, a.L - t0);
         if ((!one_slab || pi == 0) && (task != first || t0 || pi)) {
@@ -340,9 +354,9 @@ __global__ void __launch_bounds__(512) walk_kernel(const Args a) {
   }
 }
 
-template <int SPW, int J, bool kOne, bool kAll>
+template <int SPW, int J, bool kOne, bool kAll, bool kFrom>
 int launch_t(const Args &a, int threads, int smem, cudaStream_t stream) {
-  auto kernel = walk_kernel<SPW, J, kOne, kAll>;
+  auto kernel = walk_kernel<SPW, J, kOne, kAll, kFrom>;
   // Per instantiation and device, kept across launches: the shared memory
   // opted in to and the resident blocks an SM at the last (threads, smem).
   struct Seen {
@@ -380,34 +394,46 @@ int launch_t(const Args &a, int threads, int smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int SPW, int J>
+// Walks from explicit starts are chunk-major with 1 or 2 chains at any
+// n_starts (ops.match_plan lays them out so), so only those 8 of their
+// instantiations are built: 32 kernels in all.
+template <int SPW, int J, bool kFrom>
 int launch_j(const Args &a, bool one, bool all, int threads, int smem,
              cudaStream_t st) {
-  if (one)
-    return all ? launch_t<SPW, J, true, true>(a, threads, smem, st)
-               : launch_t<SPW, J, true, false>(a, threads, smem, st);
-  return all ? launch_t<SPW, J, false, true>(a, threads, smem, st)
-             : launch_t<SPW, J, false, false>(a, threads, smem, st);
+  if constexpr (!kFrom) {
+    if (one)
+      return all ? launch_t<SPW, J, true, true, false>(a, threads, smem, st)
+                 : launch_t<SPW, J, true, false, false>(a, threads, smem, st);
+  } else {
+    if (one) return (int)cudaErrorInvalidValue;
+  }
+  return all ? launch_t<SPW, J, false, true, kFrom>(a, threads, smem, st)
+             : launch_t<SPW, J, false, false, kFrom>(a, threads, smem, st);
 }
 
-template <int SPW>
+template <int SPW, bool kFrom>
 int launch_spw(const Args &a, int chains, bool one, bool all, int threads,
                int smem, cudaStream_t st) {
   switch (chains) {
-    case 1: return launch_j<SPW, 1>(a, one, all, threads, smem, st);
-    case 2: return launch_j<SPW, 2>(a, one, all, threads, smem, st);
-    case 3: return launch_j<SPW, 3>(a, one, all, threads, smem, st);
+    case 1: return launch_j<SPW, 1, kFrom>(a, one, all, threads, smem, st);
+    case 2: return launch_j<SPW, 2, kFrom>(a, one, all, threads, smem, st);
+    case 3:
+      if constexpr (kFrom) return (int)cudaErrorInvalidValue;
+      else return launch_j<SPW, 3, kFrom>(a, one, all, threads, smem, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Walk every chunk through every table as `plan` (an int a Field) says.
-int run(const void *tables, const void *chunks, void *out, int P, int n,
-        int k, long long B, int L, int n_starts, const int *plan,
-        void *stream) {
+// Walk every chunk through every table as `plan` (an int a Field) says,
+// from states 0 .. n_starts-1, or (kFrom) from starts[p, :].
+template <bool kFrom>
+int run(const void *tables, const void *chunks, const void *starts,
+        void *out, int P, int n, int k, long long B, int L, int n_starts,
+        const int *plan, void *stream) {
   Args a;
   a.tables = (const int32_t *)tables;
   a.chunks = (const int32_t *)chunks;
+  a.starts = (const int32_t *)starts;
   a.out = (int32_t *)out;
   a.P = P;
   a.n = n;
@@ -436,8 +462,9 @@ int run(const void *tables, const void *chunks, void *out, int P, int n,
   const int threads = plan[kThreads], smem = plan[kSmem];
   cudaStream_t st = (cudaStream_t)stream;
   if (plan[kSymPerWord] == 4)
-    return launch_spw<4>(a, plan[kChains], one, all, threads, smem, st);
-  return launch_spw<1>(a, plan[kChains], one, all, threads, smem, st);
+    return launch_spw<4, kFrom>(a, plan[kChains], one, all, threads, smem,
+                                st);
+  return launch_spw<1, kFrom>(a, plan[kChains], one, all, threads, smem, st);
 }
 
 }  // namespace

@@ -22,8 +22,8 @@
 extern "C" int match_chunks_launch(const void *table, const void *chunks,
                                    void *out, int n, int k, long long B, int L,
                                    const void *plan, void *stream) {
-  return match::run(table, chunks, out, 1, n, k, B, L, n, (const int *)plan,
-                    stream);
+  return match::run<false>(table, chunks, nullptr, out, 1, n, k, B, L, n,
+                           (const int *)plan, stream);
 }
 
 extern "C" const char *match_chunks_error_string(int code) {

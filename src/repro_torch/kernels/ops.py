@@ -6,7 +6,14 @@ Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, checks the launch error, and adds one to
 ``launches[<kernel>]`` for every kernel launch (plain-version calls are not
 counted; ``compose``, ``compose_fold`` and ``compose_fold_rows`` are one
-kernel and share its count).
+kernel and share its count). A walk of ``match_bank_chunks`` from explicit
+starts also adds one to ``form_launches["match_bank_chunks.starts"]``, so a
+caller can tell the speculative pass from the other walks. ``launches`` is
+the per-launch count that ``chip_smoke.py`` reads; it does not depend on :mod:`..obs`, which can be
+disabled. Besides, every wrapper call, kernel or plain version, adds one to
+the ``kernels.<wrapper>.calls`` counter of :mod:`..obs` (the reference
+package's counters of the same names count jit trace events, not calls, so
+the two packages' ``kernels.*`` values are not compared).
 
 The launch path is paid on every call, and the stream and the chunk folds
 make thousands of small ones, so it keeps to a few microseconds of host
@@ -33,10 +40,22 @@ from typing import NamedTuple
 
 import torch
 
+from .. import obs
 from . import build, ref
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {name: 0 for name in build.KERNELS}
+#: Launches of one form of a kernel, counted in ``launches`` as well.
+form_launches = {"match_bank_chunks.starts": 0}
+
+#: ``kernels.<wrapper>.calls`` of :mod:`..obs`, bound once.
+_CALLS = {
+    name: obs.counter(f"kernels.{name}.calls",
+                      help=f"calls of the {name} kernel wrapper")
+    for name in ("fingerprint_bank", "expand_bank", "match_bank_chunks",
+                 "compose", "compose_fold", "compose_fold_rows",
+                 "match_chunks", "fingerprint", "spec_resolve")
+}
 
 #: Shared memory a block of ``match_bank_chunks`` / ``match_chunks`` fills
 #: with table rows (padded to ``k | 1`` words) and its warps' symbol slabs:
@@ -67,7 +86,7 @@ _ENTRY_POINTS = {
     "expand_bank_launch": ("expand_bank",
                            [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT]),
     "match_bank_chunks_launch": ("match_bank_chunks",
-                                 [_VP, _VP, _VP, _INT, _INT, _INT, _LONG,
+                                 [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _LONG,
                                   _INT, _INT, _VP]),
     "compose_launch": ("compose", [_VP, _VP, _VP, _LONG, _INT, _INT]),
     "compose_rows_launch": ("compose",
@@ -75,6 +94,9 @@ _ENTRY_POINTS = {
     "match_chunks_launch": ("match_chunks",
                             [_VP, _VP, _VP, _INT, _INT, _LONG, _INT, _VP]),
     "fingerprint_launch": ("fingerprint", [_VP, _VP, _VP, _VP, _LONG, _INT]),
+    "spec_resolve_launch": ("spec_resolve",
+                            [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                             _INT, _INT, _INT, _LONG, _INT, _INT, _INT]),
 }
 
 #: Largest grid y extent: the kernels that put the pattern axis there.
@@ -82,8 +104,9 @@ _GRID_Y_MAX = 65535
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, form_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.cache
@@ -172,17 +195,21 @@ class MatchPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)
 def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
-               sms: int, smem_limit: int) -> MatchPlan:
+               sms: int, smem_limit: int,
+               from_starts: bool = False) -> MatchPlan:
     """The launch layout of a chunk walk of P (n, k) tables over (B, L)
-    chunks from ``n_starts`` start states on a card of ``sms`` SMs whose
-    blocks may opt in to ``smem_limit`` bytes of shared memory
-    (``csrc/match.cuh`` says what each choice is for).
+    chunks from ``n_starts`` start states (``from_starts``: explicit ones)
+    on a card of ``sms`` SMs whose blocks may opt in to ``smem_limit`` bytes
+    of shared memory (``csrc/match.cuh`` says what each choice is for).
 
     ``n_starts >= 32`` is start-major: a warp takes one chunk, ⌈n_starts/32⌉
     chains a thread up to 3, several warp tasks a chunk above 96 starts.
     Below it is chunk-major: a warp takes ⌊32·chains / n_starts⌋ chunks,
     with 2 chains a thread, or 1 where 2 would leave the card short of
-    :data:`MATCH_WARPS_PER_SM` warps an SM.
+    :data:`MATCH_WARPS_PER_SM` warps an SM. Walks from explicit starts are
+    chunk-major at any ``n_starts`` (their kernels are built only so): above
+    32 starts a warp task takes 32 of a chunk's starts on each of its
+    ``chains`` chunks, ⌈n_starts/32⌉ warp tasks a chunk.
 
     A block has :data:`MATCH_THREADS` threads and
     :data:`MATCH_SMEM_BLOCK` bytes (two blocks an SM), the warps' slabs
@@ -203,16 +230,18 @@ def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
     No block takes more than ``smem_limit`` bytes for its slabs and rows."""
     spw = 4 if k <= 256 else 1
     rowb = (k | 1) * 4
-    one = n_starts >= 32
+    one = n_starts >= 32 and not from_starts
     wide = one and n * rowb > MATCH_SMEM_BLOCK // 2
     if one:
         J = min(2 if wide else 3, -(-n_starts // 32))
         cw, qw = 1, 32 * J
         groups = -(-n_starts // qw)
     else:
-        J = (2 if P * -(-B // (64 // n_starts)) >= MATCH_WARPS_PER_SM * sms
-             else 1)
-        cw, qw, groups = 32 * J // n_starts, n_starts, 1
+        qw = min(n_starts, 32)
+        groups = -(-n_starts // qw)
+        J = (2 if P * -(-B // (64 // qw)) * groups
+             >= MATCH_WARPS_PER_SM * sms else 1)
+        cw = 32 * J // qw
     tasks = -(-B // cw) * groups
     small = P * tasks <= sms * 16
     threads = min(MATCH_THREADS, 32 * tasks) if small else MATCH_THREADS
@@ -241,28 +270,31 @@ def match_plan(P: int, n: int, k: int, B: int, L: int, n_starts: int,
 
 
 def match_plan_of(tables: torch.Tensor, chunks: torch.Tensor,
-                  n_starts: int | None = None) -> MatchPlan:
+                  n_starts: int | None = None,
+                  from_starts: bool = False) -> MatchPlan:
     """The plan a launch on these CUDA tensors takes: ``tables`` (P, n, k)
-    as :func:`match_bank_chunks` gets them, or one (n, k) table as
-    :func:`match_chunks` (``n_starts = n``); chunks (B, L)."""
+    as :func:`match_bank_chunks` gets them (``from_starts``: with explicit
+    starts), or one (n, k) table as :func:`match_chunks`
+    (``n_starts = n``); chunks (B, L)."""
     t = tables if tables.dim() == 3 else tables[None]
     P, n, k = t.shape
     B, L = chunks.shape
     dev = t.get_device()
     return match_plan(P, n, k, B, L, n if n_starts is None else n_starts,
-                      _sm_count(dev), _smem_limit(dev))
+                      _sm_count(dev), _smem_limit(dev), from_starts)
 
 
 @functools.lru_cache(maxsize=1024)
 def _match_args(dev: int, P: int, n: int, k: int, B: int, L: int,
-                n_starts: int, name: str):
+                n_starts: int, name: str, from_starts: bool = False):
     """The plan of a launch on CUDA device ``dev`` as the C int array the
     kernel reads; raises where a block cannot hold it."""
     if n * (k | 1) * 4 >= 1 << 31:
         raise ValueError(f"{name}: a ({n}, {k}) table is more than the kernel "
                          f"indexes")
     limit = _smem_limit(dev)
-    plan = match_plan(P, n, k, B, L, n_starts, _sm_count(dev), limit)
+    plan = match_plan(P, n, k, B, L, n_starts, _sm_count(dev), limit,
+                      from_starts)
     if plan.smem > limit:
         raise ValueError(
             f"{name}: the walk stages {plan.smem} bytes of shared memory a "
@@ -276,6 +308,7 @@ def fingerprint_bank(words: torch.Tensor, weights: torch.Tensor,
     """Per-pattern Rabin fingerprints: (P, B, W) packed words, (P, W, 2) fold
     weights [hi, lo], (P, 4) Barrett limbs [p_hi, p_lo, mu_hi, mu_lo] — int32
     bit patterns of u32 values -> (P, B, 2) int32 [hi, lo]."""
+    _CALLS["fingerprint_bank"].inc()
     dev = _check("fingerprint_bank", ("words", "weights", "limbs"),
                  words, weights, limbs)
     if words.dim() != 3:
@@ -306,6 +339,7 @@ def expand_bank(tables: torch.Tensor, ft: torch.Tensor,
     masks them: -> ``(cand, words)``, words (B, T·k, W) int32 bit patterns
     of ``pack_states_u32(cand) & word_masks`` — what ``fingerprint_bank``
     reads."""
+    _CALLS["expand_bank"].inc()
     if word_masks is None:
         dev = _check("expand_bank", ("tables", "ft"), tables, ft)
     else:
@@ -344,30 +378,53 @@ def expand_bank(tables: torch.Tensor, ft: torch.Tensor,
 
 
 def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
-                      n_starts: int | None = None) -> torch.Tensor:
+                      n_starts: int | None = None,
+                      starts: torch.Tensor | None = None) -> torch.Tensor:
     """Chunk walks of every table: (P, n, k) tables, (B, L) chunk symbols
     < k -> (P, B, n_starts), column ``q`` the state reached from ``q``.
-    ``n_starts`` defaults to ``n`` (whole transition functions). The
-    layout, and how many rows are staged in shared memory, is
-    :func:`match_plan`'s."""
-    dev = _check("match_bank_chunks", ("tables", "chunks"), tables, chunks)
+    ``n_starts`` defaults to ``n`` (whole transition functions). Given
+    ``starts`` (P, m) state ids < n, column ``q`` walks from
+    ``starts[p, q]`` instead and ``n_starts`` is ``m`` (the speculative
+    scan's m-lane pass; a (D, L) corpus viewed as (D·C, L/C) chunks gives
+    the reference's (P, D, C, m) exits in this layout). The layout, and how
+    many rows are staged in shared memory, is :func:`match_plan`'s."""
+    _CALLS["match_bank_chunks"].inc()
+    if starts is None:
+        dev = _check("match_bank_chunks", ("tables", "chunks"), tables,
+                     chunks)
+    else:
+        dev = _check("match_bank_chunks", ("tables", "chunks", "starts"),
+                     tables, chunks, starts)
     if tables.dim() != 3 or chunks.dim() != 2:
         raise ValueError("match_bank_chunks: tables must be (P, n, k), "
                          "chunks (B, L)")
     P, n, k = tables.shape
     B, L = chunks.shape
-    n_starts = n if n_starts is None else int(n_starts)
-    if not 1 <= n_starts <= n:
-        raise ValueError(f"match_bank_chunks: n_starts must be in [1, {n}], "
-                         f"got {n_starts}")
+    if starts is None:
+        n_starts = n if n_starts is None else int(n_starts)
+        if not 1 <= n_starts <= n:
+            raise ValueError(f"match_bank_chunks: n_starts must be in "
+                             f"[1, {n}], got {n_starts}")
+    else:
+        if starts.dim() != 2 or starts.shape[0] != P or starts.shape[1] < 1:
+            raise ValueError(f"match_bank_chunks: starts must be (P, m) with "
+                             f"P = {P}, m >= 1, got {tuple(starts.shape)}")
+        if n_starts is not None and int(n_starts) != starts.shape[1]:
+            raise ValueError(f"match_bank_chunks: n_starts {n_starts} is not "
+                             f"the {starts.shape[1]} columns of starts")
+        n_starts = starts.shape[1]
     if dev < 0:
-        return ref.match_bank_chunks(tables, chunks, n_starts)
+        return ref.match_bank_chunks(tables, chunks, n_starts, starts)
     out = tables.new_empty((P, B, n_starts))
     if P and B:
         _launch("match_bank_chunks_launch", dev, tables.data_ptr(),
-                chunks.data_ptr(), out.data_ptr(), P, n, k, B, L, n_starts,
+                chunks.data_ptr(),
+                None if starts is None else starts.data_ptr(),
+                out.data_ptr(), P, n, k, B, L, n_starts,
                 _match_args(dev, P, n, k, B, L, n_starts,
-                            "match_bank_chunks"))
+                            "match_bank_chunks", starts is not None))
+        if starts is not None:
+            form_launches["match_bank_chunks.starts"] += 1
     return out
 
 
@@ -375,6 +432,7 @@ def compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Function-monoid combine ("apply f, then g"): (B, n) mapping vectors
     of state ids < n -> (B, n), ``out[b, q] = g[b, f[b, q]]`` — the
     ``m = 1`` case of :func:`compose_fold`."""
+    _CALLS["compose"].inc()
     dev = _check("compose", ("f", "g"), f, g)
     if f.dim() != 2 or f.shape != g.shape:
         raise ValueError(f"compose: f and g must both be (B, n), got "
@@ -394,6 +452,7 @@ def compose_fold(f: torch.Tensor | None, gs: torch.Tensor) -> torch.Tensor:
     (the identity), gs (B, m, n) mapping vectors of state ids < n ->
     (B, n), ``out[b, q] = gs[b, m-1, … gs[b, 0, f[b, q]] …]`` (apply f,
     then each g in order)."""
+    _CALLS["compose_fold"].inc()
     if f is None:
         dev = _check("compose_fold", ("gs",), gs)
     else:
@@ -422,6 +481,7 @@ def compose_fold_rows(stacks: torch.Tensor, idx: torch.Tensor
     (P, D, n), the identity then ``stacks[p, idx[p, d, 0]]``, …,
     ``stacks[p, idx[p, d, m-1]]`` in order (the SFA scan's chunk fold: row
     ``idx[p, d, j]`` is chunk ``j``'s final SFA state)."""
+    _CALLS["compose_fold_rows"].inc()
     dev = _check("compose_fold_rows", ("stacks", "idx"), stacks, idx)
     if (stacks.dim() != 3 or idx.dim() != 3
             or idx.shape[0] != stacks.shape[0] or idx.shape[2] < 1):
@@ -447,6 +507,7 @@ def match_chunks(table: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
     chunk symbols < k -> (B, n), column ``q`` the state reached from ``q``:
     the ``P = 1``, ``n_starts = n`` walk of :func:`match_bank_chunks`, on
     its own launch (:func:`match_plan` lays it out)."""
+    _CALLS["match_chunks"].inc()
     dev = _check("match_chunks", ("table", "chunks"), table, chunks)
     if table.dim() != 2 or chunks.dim() != 2:
         raise ValueError("match_chunks: table must be (n, k), chunks (B, L)")
@@ -467,6 +528,7 @@ def fingerprint(words: torch.Tensor, weights: torch.Tensor,
     """Rabin fingerprints under one polynomial: (B, W) packed words,
     (W, 2) fold weights [hi, lo], (4,) Barrett limbs [p_hi, p_lo, mu_hi,
     mu_lo] — int32 bit patterns of u32 values -> (B, 2) int32 [hi, lo]."""
+    _CALLS["fingerprint"].inc()
     dev = _check("fingerprint", ("words", "weights", "limbs"),
                  words, weights, limbs)
     if words.dim() != 2:
@@ -484,3 +546,59 @@ def fingerprint(words: torch.Tensor, weights: torch.Tensor,
         _launch("fingerprint_launch", dev, words.data_ptr(),
                 weights.data_ptr(), limbs.data_ptr(), out.data_ptr(), B, W)
     return out
+
+
+def spec_resolve(tables: torch.Tensor, spec: torch.Tensor,
+                 starts: torch.Tensor, exits: torch.Tensor,
+                 chunks: torch.Tensor, n_chunks: int, max_rounds: int
+                 ) -> tuple:
+    """Validate and repair of speculative scanning in one launch: tables
+    (P, n, k), spec (P, m) speculated entry states, starts (P,), exits
+    (P, D·C, m) from :func:`match_bank_chunks` with ``starts=spec``, chunks
+    (D·C, Lc), C = ``n_chunks`` -> ``(finals (P, D) int32, resolved (P, D)
+    bool, hit_chunks, repaired, rounds)``, the last three 0-d int64
+    tensors, as :func:`.ref.spec_resolve` computes them in rounds (the CUDA
+    kernel walks each lane once; ``csrc/spec_resolve.cu`` says why that is
+    the same function)."""
+    _CALLS["spec_resolve"].inc()
+    dev = _check("spec_resolve", ("tables", "spec", "starts", "exits",
+                                  "chunks"),
+                 tables, spec, starts, exits, chunks)
+    if tables.dim() != 3 or spec.dim() != 2 or starts.dim() != 1 \
+            or exits.dim() != 3 or chunks.dim() != 2:
+        raise ValueError("spec_resolve: tables must be (P, n, k), spec "
+                         "(P, m), starts (P,), exits (P, B, m), chunks (B, Lc)")
+    P, n, k = tables.shape
+    m = spec.shape[1]
+    B, Lc = chunks.shape
+    C = int(n_chunks)
+    if (spec.shape[0] != P or starts.shape[0] != P or m < 1
+            or tuple(exits.shape) != (P, B, m)):
+        raise ValueError(
+            f"spec_resolve: spec {tuple(spec.shape)}, starts "
+            f"{tuple(starts.shape)} and exits {tuple(exits.shape)} do not fit "
+            f"tables {tuple(tables.shape)} and chunks {tuple(chunks.shape)}")
+    if C < 1 or B % C:
+        raise ValueError(f"spec_resolve: {B} chunks are not whole docs of "
+                         f"n_chunks = {n_chunks}")
+    if max_rounds < 0:
+        raise ValueError(f"spec_resolve: max_rounds must be >= 0, got "
+                         f"{max_rounds}")
+    if dev < 0:
+        return ref.spec_resolve(tables, spec, starts, exits, chunks, C,
+                                max_rounds)
+    D = B // C
+    if P > _GRID_Y_MAX:
+        raise ValueError(f"spec_resolve: {P} patterns are more than one "
+                         f"launch indexes ({_GRID_Y_MAX})")
+    finals = tables.new_empty((P, D))
+    resolved = torch.empty((P, D), dtype=torch.bool, device=tables.device)
+    if not (P and D):
+        totals = torch.zeros(3, dtype=torch.int64, device=tables.device)
+        return finals, resolved, totals[0], totals[1], totals[2]
+    totals = torch.empty(3, dtype=torch.int64, device=tables.device)
+    _launch("spec_resolve_launch", dev, tables.data_ptr(), spec.data_ptr(),
+            starts.data_ptr(), exits.data_ptr(), chunks.data_ptr(),
+            finals.data_ptr(), resolved.data_ptr(), totals.data_ptr(),
+            P, n, k, m, D, C, Lc, int(max_rounds))
+    return finals, resolved, totals[0], totals[1], totals[2]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six CUDA kernels and their forms.
+"""Plain PyTorch versions of the seven CUDA kernels and their forms.
 
 Each function computes exactly what its kernel computes, on any device. The
 wrappers in :mod:`.ops` call these for CPU tensors; ``chip_smoke.py`` holds
@@ -66,20 +66,27 @@ def expand_bank(tables: torch.Tensor, ft: torch.Tensor,
 
 
 def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
-                      n_starts: int) -> torch.Tensor:
-    """Each chunk run from start states ``0 .. n_starts-1`` of every table.
+                      n_starts: int,
+                      starts: torch.Tensor | None = None) -> torch.Tensor:
+    """Each chunk run from start states ``0 .. n_starts-1`` of every table,
+    or, given ``starts`` (P, n_starts), from states ``starts[p]``.
 
     tables: (P, n, k) int32; chunks: (B, L) int32 symbols < k ->
     (P, B, n_starts) int32, ``out[p, b, q]`` = the state pattern ``p``
-    reaches from ``q`` after chunk ``b``. ``n_starts = n`` gives the chunk's
-    whole transition function (enumeration); ``n_starts = 1`` the walk from
-    state 0 alone (the SFA path's final state).
+    reaches from ``q`` (from ``starts[p, q]``) after chunk ``b``.
+    ``n_starts = n`` gives the chunk's whole transition function
+    (enumeration); ``n_starts = 1`` the walk from state 0 alone (the SFA
+    path's final state); ``starts`` the speculative pass's m-lane walk from
+    a hot-state profile.
     """
     P = tables.shape[0]
     B, L = chunks.shape
     dev = tables.device
     rows = torch.arange(P, device=dev)[:, None, None]
-    v = torch.arange(n_starts, device=dev).expand(P, B, n_starts)
+    if starts is None:
+        v = torch.arange(n_starts, device=dev).expand(P, B, n_starts)
+    else:
+        v = starts.to(torch.int64)[:, None, :].expand(P, B, n_starts)
     syms = chunks.to(torch.int64)
     for t in range(L):
         v = tables[rows, v, syms[None, :, t, None]].to(torch.int64)
@@ -132,3 +139,84 @@ def fingerprint(words: torch.Tensor, weights: torch.Tensor,
     (W, 2), limbs (4,) — int32 bit patterns -> (B, 2) int32 [hi, lo]. The
     one-pattern case of :func:`fingerprint_bank`."""
     return fingerprint_bank(words[None], weights[None], limbs[None])[0]
+
+
+def spec_resolve(tables: torch.Tensor, spec: torch.Tensor,
+                 starts: torch.Tensor, exits: torch.Tensor,
+                 chunks: torch.Tensor, n_chunks: int, max_rounds: int
+                 ) -> tuple:
+    """Validate and repair of speculative scanning, in rounds.
+
+    tables (P, n, k); spec (P, m) speculated chunk entry states; starts
+    (P,); exits (P, D·C, m), ``exits[p, d·C + c, q]`` the state chunk ``c``
+    of doc ``d`` leaves from ``spec[p, q]`` (:func:`match_bank_chunks` with
+    ``starts=spec``); chunks (D·C, Lc); C = ``n_chunks`` -> ``(finals (P, D)
+    int32, resolved (P, D) bool, hit_chunks, repaired, rounds)``, the last
+    three 0-d int64 tensors.
+
+    The rounds of the reference executor's loop, one for one: walk the
+    chunks of every (pattern, doc) lane from its start, adopting the
+    speculated exit where the entry was speculated and a repaired exit
+    where one exists, up to the lane's first miss; then, while a lane is
+    broken and fewer than ``max_rounds`` rounds ran, re-walk the first
+    missed chunk of every broken lane from its exact entry and validate
+    again. ``finals`` is exact where ``resolved``; an unresolved lane keeps
+    the entry state of its first unrepaired miss. ``hit_chunks`` counts the
+    chunks the last validation settled by speculation.
+    """
+    P = tables.shape[0]
+    B, Lc = chunks.shape
+    C = n_chunks
+    D = B // C
+    dev = tables.device
+    ex = exits.view(P, D, C, -1).to(torch.int64)
+    ch = chunks.view(D, C, Lc).to(torch.int64)
+    sp = spec.to(torch.int64)[:, None, :]                    # (P, 1, m)
+    st = starts.to(torch.int64)[:, None].expand(P, D)
+    rows = torch.arange(P, device=dev)[:, None]
+    docs = torch.arange(D, device=dev)[None, :]
+    c_idx = torch.arange(C, device=dev)
+
+    def validate(rep_exit, rep_mask):
+        cur = st.clone()
+        alive = torch.ones((P, D), dtype=torch.bool, device=dev)
+        miss_c = torch.full((P, D), C, dtype=torch.int64, device=dev)
+        miss_entry = torch.zeros((P, D), dtype=torch.int64, device=dev)
+        hits = torch.zeros((), dtype=torch.int64, device=dev)
+        for c in range(C):
+            match = sp == cur[:, :, None]                     # (P, D, m)
+            hit = match.any(-1)
+            lane = match.to(torch.int32).argmax(-1, keepdim=True)
+            spec_exit = ex[:, :, c].gather(-1, lane)[..., 0]
+            rep_m = rep_mask[:, :, c]
+            ok = rep_m | hit
+            nxt = torch.where(rep_m, rep_exit[:, :, c], spec_exit)
+            newly = alive & ~ok
+            hits = hits + (alive & ~rep_m & hit).sum()
+            miss_c = torch.where(newly, c, miss_c)
+            miss_entry = torch.where(newly, cur, miss_entry)
+            cur = torch.where(alive & ok, nxt, cur)
+            alive = alive & ok
+        return cur, alive, miss_c, miss_entry, hits
+
+    def repair(rep_exit, rep_mask, alive, miss_c, miss_entry):
+        c = miss_c.clamp(max=C - 1)
+        lane_chunks = ch[docs, c]                             # (P, D, Lc)
+        s = miss_entry
+        for t in range(Lc):
+            s = tables[rows, s, lane_chunks[:, :, t]].to(torch.int64)
+        sel = (c_idx == c[:, :, None]) & (~alive)[:, :, None]
+        return (torch.where(sel, s[:, :, None], rep_exit),
+                rep_mask | sel)
+
+    rep_exit = torch.zeros((P, D, C), dtype=torch.int64, device=dev)
+    rep_mask = torch.zeros((P, D, C), dtype=torch.bool, device=dev)
+    cur, alive, miss_c, miss_entry, hits = validate(rep_exit, rep_mask)
+    rounds = 0
+    while rounds < max_rounds and not bool(alive.all()):
+        rep_exit, rep_mask = repair(rep_exit, rep_mask, alive, miss_c,
+                                    miss_entry)
+        cur, alive, miss_c, miss_entry, hits = validate(rep_exit, rep_mask)
+        rounds += 1
+    return (cur.to(torch.int32), alive, hits, rep_mask.sum(),
+            torch.tensor(rounds, dtype=torch.int64, device=dev))

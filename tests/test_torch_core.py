@@ -59,6 +59,24 @@ def test_clmul32_and_clmul64_match_reference(seed):
         assert (int(hi[i]) << 32 | int(lo[i])) == prod
 
 
+@pytest.mark.parametrize("sa,sb", [((5, 1), (1, 7)), ((3, 4), (4,)),
+                                   ((4,), (3, 4)), ((2, 1, 3), (4, 1))])
+def test_clmul32_broadcasts_like_the_reference(sa, sb):
+    # the table is built from the smaller operand; neither operand need
+    # have the broadcast shape. The reference's clmul32 takes operands of
+    # one shape: it gets them broadcast.
+    rng = np.random.default_rng(len(sa) * 10 + len(sb))
+    a, b = _u32(rng, sa), _u32(rng, sb)
+    hi, lo = fp.clmul32(torch.from_numpy(a.astype(np.int64)),
+                        torch.from_numpy(b.astype(np.int64)))
+    ja, jb = (jnp.asarray(np.ascontiguousarray(x))
+              for x in np.broadcast_arrays(a, b))
+    jhi, jlo = _jclmul32(ja, jb)
+    assert hi.shape == np.broadcast_shapes(sa, sb)
+    assert np.array_equal(hi.numpy(), np.asarray(jhi))
+    assert np.array_equal(lo.numpy(), np.asarray(jlo))
+
+
 @pytest.mark.parametrize("poly", POLYS)
 def test_barrett_matches_int_oracle(poly):
     consts = fp.BarrettConstants.cached(poly)

@@ -6,6 +6,8 @@ play; and the port's executors, fed the reference's own stacked tables
 through ``repro_torch.interop``, give the reference executors' mappings.
 """
 
+from dataclasses import asdict
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -44,11 +46,12 @@ DOCS = ([synthetic_protein(48, seed=i) for i in range(3)]
 
 @pytest.fixture(scope="module")
 def scanners():
-    """The bundled bank compiled once by each package, default budget. The
-    reference constructs without its process-wide SFA cache, so its
-    construction report is its own whatever ran before in the process."""
+    """The bundled bank compiled once by each package, default budget. Both
+    construct without their process-wide SFA caches, so each construction
+    report is its own whatever ran before in the process."""
     port = Scanner.compile(load_bank(), device="cpu",
-                           chunking=ChunkPolicy(n_chunks=N_CHUNKS))
+                           chunking=ChunkPolicy(n_chunks=N_CHUNKS),
+                           construction=ConstructionPolicy(cache="off"))
     ref = JScanner.compile(jload_bank(), JScanPlan(
         mode="auto", backend="xla", chunking=JChunkPolicy(n_chunks=N_CHUNKS),
         construction=JConstructionPolicy(cache="off")))
@@ -158,9 +161,9 @@ def test_sequential_tail_helpers_match_reference():
 
 
 def test_auto_blowup_tiers():
-    """Budget blowups: mode='sfa' raises StateBlowup, and a blowup of a
-    DFA with >= 128 states (auto's speculative tier, not ported yet) raises
-    NotImplementedError instead of scanning it some other way."""
+    """Budget blowups: mode='sfa' raises StateBlowup, a small DFA falls
+    back to enumeration, and a blowup of a DFA with >= 128 states goes to
+    auto's speculative tier, whose scan equals the reference's."""
     small = random_dfa(8, 8, seed=1)
     with pytest.raises(StateBlowup):
         Scanner.compile([small], device="cpu", mode="sfa",
@@ -168,16 +171,24 @@ def test_auto_blowup_tiers():
     sc = Scanner.compile([small], device="cpu", sfa_state_budget=12)
     assert sc.pattern_modes == {"pattern_0": "enumeration"}
     big = random_dfa(130, 4, seed=2)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        Scanner.compile([big], device="cpu", sfa_state_budget=16)
+    sc = Scanner.compile([big], device="cpu", sfa_state_budget=16)
+    assert sc.pattern_modes == {"pattern_0": "speculative"}
+    ref = JScanner.compile([jrandom_dfa(130, 4, seed=2)],
+                           JScanPlan(sfa_state_budget=16))
+    docs = np.random.default_rng(2).integers(0, 4, (3, 70)).astype(np.int32)
+    got, want = sc.scan(docs), ref.scan(docs)
+    assert np.array_equal(got.hits, want.hits)
+    assert asdict(got.speculation) == asdict(want.speculation)
 
 
 def test_plan_validation():
     assert ScanPlan().device == "cuda" and ScanPlan().backend == "kernel"
+    assert ConstructionPolicy().cache == "shared"
     for bad in (dict(backend="xla"), dict(backend="pallas"),
-                dict(mode="speculative"),
+                dict(mode="parallel"),
                 dict(device="tpu"), dict(sfa_state_budget=0),
-                dict(construction=ConstructionPolicy(cache="shared")),
+                dict(construction=ConstructionPolicy(cache="private")),
+                dict(construction=ConstructionPolicy(store=42)),
                 dict(chunking=ChunkPolicy(n_chunks=0))):
         with pytest.raises(ValueError):
             ScanPlan(**bad).validate()

@@ -29,7 +29,11 @@ def _port_modules() -> list:
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert {"repro_torch.construction.batched", "repro_torch.engine.scanner",
-            "repro_torch.kernels.ops", "repro_torch.interop"} <= set(mods)
+            "repro_torch.kernels.ops", "repro_torch.interop",
+            "repro_torch.construction.cache", "repro_torch.obs.tracing",
+            "repro_torch.obs.aggregate", "repro_torch.speculative.executor",
+            "repro_torch.scanservice.jobs",
+            "repro_torch.scanservice.telemetry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

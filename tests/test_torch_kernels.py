@@ -28,6 +28,7 @@ from repro.kernels.expand import expand_bank_pallas  # noqa: E402
 from repro.kernels.match_scan import match_bank_chunks_pallas  # noqa: E402
 from repro.kernels.match_scan import match_chunks_pallas  # noqa: E402
 from repro.kernels.ref import match_chunks_ref  # noqa: E402
+from repro.speculative import speculative_bank_finals as jfinals  # noqa: E402
 from repro_torch.core.fingerprint import (  # noqa: E402
     BarrettConstants,
     fold_weights_u32,
@@ -38,6 +39,7 @@ from repro_torch.core.fingerprint import (  # noqa: E402
 )
 from repro_torch.engine import executors as X  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.speculative import speculative_bank_finals  # noqa: E402
 
 
 def _u32(rng, shape):
@@ -241,15 +243,43 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     assert all(torch.equal(a, b) for a, b in zip(
         ops.expand_bank(t, gs, masks), ref.expand_bank(t, gs, masks)))
     ops.fingerprint(args[0][0], args[1][0], args[2][0])
+    spec = torch.from_numpy(tables[:, 0, :2].copy())
+    exits = ops.match_bank_chunks(t, c, 2, spec)
+    assert torch.equal(exits, ref.match_bank_chunks(t, c, 2, spec))
+    got = ops.spec_resolve(t, spec, spec[:, 0].contiguous(), exits, c, 1, 1)
+    want = ref.spec_resolve(t, spec, spec[:, 0].contiguous(), exits, c, 1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(v == 0 for v in ops.launches.values())
+    assert all(v == 0 for v in ops.form_launches.values())
     assert set(ops.launches) == set(build.KERNELS)
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity",
-                                  "n_starts", "device", "folds and words"])
+                                  "n_starts", "device", "folds and words",
+                                  "speculative"])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
     tables, chunks = _match_inputs(2, 4, 3, 2, 3, seed=3)
     t, c = torch.from_numpy(tables), torch.from_numpy(chunks)
+    if case == "speculative":
+        spec = torch.zeros((2, 3), dtype=torch.int32)
+        exits = ops.match_bank_chunks(t, c, starts=spec)
+        assert exits.shape == (2, 2, 3)
+        with pytest.raises(ValueError):
+            ops.match_bank_chunks(t, c, starts=spec[:1])
+        with pytest.raises(ValueError):
+            ops.match_bank_chunks(t, c, 2, spec)
+        with pytest.raises(TypeError):
+            ops.match_bank_chunks(t, c, starts=spec.to(torch.int64))
+        starts = spec[:, 0].contiguous()
+        with pytest.raises(ValueError):            # 2 chunks, 3 a doc
+            ops.spec_resolve(t, spec, starts, exits, c, 3, 1)
+        with pytest.raises(ValueError):
+            ops.spec_resolve(t, spec, starts, exits[:, :1], c, 1, 1)
+        with pytest.raises(ValueError):
+            ops.spec_resolve(t, spec, starts[:1], exits, c, 1, 1)
+        with pytest.raises(ValueError):
+            ops.spec_resolve(t, spec, starts, exits, c, 1, -1)
+        return
     if case == "dtype":
         with pytest.raises(TypeError):
             ops.match_bank_chunks(t.to(torch.int64), c)
@@ -343,6 +373,13 @@ _PLAN_SHAPES = {   # (P, n, k, B, L, n_starts) -> branch
     "wide alphabet": ((3, 13, 300, 1001, 7, 1), "smem"),
     "k = 2, n_starts 31": ((1, 40, 2, 9, 5, 31), "smem"),
     "n_starts 33": ((1, 40, 2, 9, 5, 33), "smem"),
+    # walks from explicit starts (the speculative pass): chunk-major at any
+    # n_starts
+    "starts, 24x702, m 8": ((24, 702, 20, 524_288, 48, 8), "smem"),
+    "starts, m 1": ((1, 5, 20, 129, 1, 1), "smem"),
+    "starts, m 32": ((2, 100, 20, 300, 48, 32), "smem"),
+    "starts, m 40": ((2, 100, 20, 300, 48, 40), "smem"),
+    "starts, m 100, wide": ((2, 3000, 300, 5000, 48, 100), "smem + L2"),
 }
 
 
@@ -350,7 +387,8 @@ _PLAN_SHAPES = {   # (P, n, k, B, L, n_starts) -> branch
 @pytest.mark.parametrize("name", sorted(_PLAN_SHAPES))
 def test_match_plan_covers_every_lane_within_the_budget(name, limit):
     (P, n, k, B, L, ns), branch = _PLAN_SHAPES[name]
-    plan = ops.match_plan(P, n, k, B, L, ns, _SMS, limit)
+    starts = name.startswith("starts")
+    plan = ops.match_plan(P, n, k, B, L, ns, _SMS, limit, starts)
     if limit == _H100_SMEM:
         assert plan.branch == branch
     assert plan.rows + plan.global_rows == n and plan.rows >= 0
@@ -358,7 +396,8 @@ def test_match_plan_covers_every_lane_within_the_budget(name, limit):
     # start-major walk over a table that does not fit beside the slabs;
     # never more than a block may opt in to
     small = P * -(-B // plan.chunks_per_warp) * plan.groups <= _SMS * 16
-    one_an_sm = small or (ns >= 32
+    major = ns >= 32 and not starts
+    one_an_sm = small or (major
                           and n * (k | 1) * 4 > ops.MATCH_SMEM_BLOCK // 2)
     budget = min(ops.MATCH_SMEM_BLOCK * (2 if one_an_sm else 1), limit)
     assert plan.smem <= budget
@@ -373,14 +412,16 @@ def test_match_plan_covers_every_lane_within_the_budget(name, limit):
     assert (plan.slab_words == 1
             or plan.slab_words * warps_words * 4 <= budget // 2)
     lanes = 32 * plan.chains
-    if ns >= 32:      # start-major: one chunk a warp, its starts in groups
+    if major:         # start-major: one chunk a warp, its starts in groups
         assert plan.one_chunk and plan.chunks_per_warp == 1
         assert plan.lanes_per_chunk == lanes
         assert (plan.groups - 1) * lanes < ns <= plan.groups * lanes
-    else:             # chunk-major: whole chunks a warp
-        assert not plan.one_chunk and plan.groups == 1
-        assert plan.lanes_per_chunk == ns
-        assert plan.chunks_per_warp == lanes // ns >= 1
+    else:             # chunk-major: whole chunks a warp, up to 32 starts of
+        qw = min(ns, 32)   # each a warp task (explicit starts past 32)
+        assert not plan.one_chunk and plan.chains <= 2
+        assert plan.lanes_per_chunk == qw
+        assert (plan.groups - 1) * qw < ns <= plan.groups * qw
+        assert plan.chunks_per_warp == lanes // qw >= 1
     # a small launch spreads its patterns over SMs, one a block; otherwise
     # a block takes a group of them, the groups of even size
     groups = -(-P // plan.patterns)
@@ -391,7 +432,7 @@ def test_match_plan_covers_every_lane_within_the_budget(name, limit):
     assert plan.rows == min(n, (budget - sym) // (plan.patterns * (k | 1) * 4))
     if n * (k | 1) * 4 <= budget - sym:    # whole tables where one fits
         assert plan.global_rows == 0
-    elif ns >= 32 or small:                # else the first rows of one
+    elif major or small:                   # else the first rows of one
         assert plan.patterns == 1
     else:                                  # or tables sharing the rows
         assert plan.rows >= min(n, ops.MATCH_MIN_ROWS)
@@ -411,6 +452,12 @@ def test_match_plan_chains_follow_the_work():
     assert [plan(1, 200, 20, 10, 8, ns).chains
             for ns in (32, 33, 64, 87, 128, 200)] == [1, 2, 2, 3, 3, 3]
     assert plan(1, 200, 20, 10, 8, 200).groups == 3
+    # walks from explicit starts: chunk-major whatever their number
+    assert plan(1, 200, 20, 10, 8, 87).one_chunk
+    many = ops.match_plan(1, 200, 20, 10, 8, 87, _SMS, _H100_SMEM, True)
+    assert not many.one_chunk and many.groups == 3 and many.chains == 1
+    assert ops.match_plan(24, 702, 20, 524_288, 48, 8, _SMS, _H100_SMEM,
+                          True) == plan(24, 702, 20, 524_288, 48, 8)
     # start-major over a table too large to stage: 2 chains, one block an SM
     wide = plan(2, 7184, 20, 4096, 48, 7184)
     assert wide.chains == 2 and wide.smem > ops.MATCH_SMEM_BLOCK
@@ -674,3 +721,85 @@ def test_match_chunks_kernel_at_locate_shape(cuda):
     assert torch.equal(got, ref.match_chunks(t, c))
     assert np.array_equal(got.cpu().numpy(), np.asarray(
         match_chunks_ref(jnp.asarray(table), jnp.asarray(chunks))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n,k,B,L,m", [(24, 702, 20, 4096, 48, 8),
+                                         (3, 13, 20, 1001, 7, 8),
+                                         (2, 3000, 20, 300, 48, 8),
+                                         (2, 100, 20, 300, 48, 32),
+                                         (2, 100, 20, 300, 48, 40),
+                                         (2, 3000, 300, 500, 48, 100),
+                                         (1, 5, 20, 129, 1, 1)])
+def test_match_bank_chunks_kernel_explicit_starts(cuda, P, n, k, B, L, m):
+    # the speculative pass: lane q of pattern p walks from starts[p, q],
+    # on staged rows, past them (n = 3000), with int32 symbols (k = 300)
+    # and past 32 starts (chunk-major, ceil(m / 32) warp tasks a chunk)
+    rng = np.random.default_rng(n + m)
+    tables, chunks = (torch.from_numpy(a).to(cuda)
+                      for a in _match_inputs(P, n, k, B, L, seed=n))
+    starts = torch.from_numpy(
+        rng.integers(0, n, size=(P, m)).astype(np.int32)).to(cuda)
+    plan = ops.match_plan_of(tables, chunks, m, from_starts=True)
+    assert not plan.one_chunk and plan.groups == -(-m // 32)
+    before = ops.launches["match_bank_chunks"]
+    walks = ops.form_launches["match_bank_chunks.starts"]
+    got = ops.match_bank_chunks(tables, chunks, m, starts)
+    assert ops.launches["match_bank_chunks"] == before + 1
+    assert ops.form_launches["match_bank_chunks.starts"] == walks + 1
+    assert torch.equal(got, ref.match_bank_chunks(tables, chunks, m, starts))
+    # the JAX package's walk from every state, at starts[p, q], on every
+    # 8th chunk
+    every = _jax_walks(tables, chunks[::8], n)
+    assert np.array_equal(got[:, ::8].cpu().numpy(), np.take_along_axis(
+        every, starts.cpu().numpy()[:, None, :].repeat(every.shape[1], 1),
+        axis=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile,max_rounds", [("hit all", 8),
+                                                ("miss all", 2),
+                                                ("miss all", 8),
+                                                ("sampled", 1)])
+def test_spec_resolve_kernel_on_card(cuda, profile, max_rounds):
+    P, n, k, D, C, Lc, m = 5, 40, 20, 3000, 8, 12, 8
+    rng = np.random.default_rng(max_rounds)
+    tables = rng.integers(0, n, size=(P, n, k)).astype(np.int32)
+    if profile == "hit all":        # every state speculated
+        tables %= m
+        spec = np.tile(np.arange(m, dtype=np.int32), (P, 1))
+    elif profile == "miss all":     # states the walks never enter
+        tables %= n - m
+        spec = np.tile(np.arange(n - m, n, dtype=np.int32), (P, 1))
+    else:
+        spec = rng.integers(0, n, size=(P, m)).astype(np.int32)
+    t = torch.from_numpy(tables).to(cuda)
+    sp = torch.from_numpy(spec).to(cuda)
+    starts = torch.from_numpy(rng.integers(
+        0, m if profile == "hit all" else n - m, size=P).astype(np.int32)
+    ).to(cuda)
+    chunks = torch.from_numpy(
+        rng.integers(0, k, size=(D * C, Lc)).astype(np.int32)).to(cuda)
+    exits = ops.match_bank_chunks(t, chunks, m, sp)
+    before = ops.launches["spec_resolve"]
+    got = ops.spec_resolve(t, sp, starts, exits, chunks, C, max_rounds)
+    assert ops.launches["spec_resolve"] == before + 1
+    want = ref.spec_resolve(t, sp, starts, exits, chunks, C, max_rounds)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # both launches through the port's executor, against the JAX
+    # package's speculative_bank_finals: all five outputs
+    corpus = chunks.view(D, C * Lc)
+    both = speculative_bank_finals(t, sp, starts, corpus, C, max_rounds)
+    jref = jfinals(*(jnp.asarray(x.cpu().numpy())
+                     for x in (t, sp, starts, corpus)),
+                   n_chunks=C, max_rounds=max_rounds)
+    for a, b, c in zip(both, got, jref):
+        assert torch.equal(a, b)
+        assert np.array_equal(a.cpu().numpy(), np.asarray(c))
+    hits, repaired = int(got[2]), int(got[3])
+    if profile == "hit all":
+        assert hits == P * D * C and repaired == 0
+    elif profile == "miss all":
+        assert hits == 0 and repaired == P * D * min(C, max_rounds)
+        assert bool(got[1].all()) == (max_rounds >= C)

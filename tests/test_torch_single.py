@@ -32,6 +32,7 @@ from repro.engine import Scanner as JScanner  # noqa: E402
 from repro.engine import executors as JX  # noqa: E402
 from repro_torch.construction import (  # noqa: E402
     FingerprintCollision,
+    SFACache,
     StateBlowup,
     construct_bank,
     construct_sfa,
@@ -267,8 +268,15 @@ def test_construct_sfa_options_and_blowup():
         construct_sfa(d, engine="sequential", max_states=40)
     with pytest.raises(ValueError):
         construct_sfa(d, engine="xla", device=CPU)
-    with pytest.raises(NotImplementedError):
-        construct_sfa(d, cache="shared", device=CPU)
+    # the cache answers a seen DFA and a known blowup without constructing
+    cache = SFACache()
+    first = construct_sfa(d, cache=cache, device=CPU)
+    assert construct_sfa(d, cache=cache, device=CPU) is first
+    assert (cache.info.hits, cache.info.misses) == (1, 1)
+    with pytest.raises(StateBlowup, match="cached blowup"):
+        construct_sfa(d, max_states=40, cache=cache, device=CPU)
+    with pytest.raises(ValueError):
+        construct_sfa(d, cache="bogus", device=CPU)
     # the tile changes the round count, never the SFA
     small = construct_sfa(d, tile=7, device=CPU)
     _assert_sfa_equal(small, construct_sfa(d, device=CPU))
@@ -348,7 +356,8 @@ def test_compile_fewer_than_four_patterns_loops_like_reference(ids):
     """Below four patterns ``method="auto"`` loops, as the reference's
     scanner does (a port that always batched reported "batched" here): the
     same report (method, rounds, constructed, blown) and the same SFAs."""
-    port = Scanner.compile(load_bank(list(ids)), device=CPU)
+    port = Scanner.compile(load_bank(list(ids)), device=CPU,
+                           construction=ConstructionPolicy(cache="off"))
     ref = JScanner.compile(jload_bank(list(ids)), JScanPlan(
         construction=JConstructionPolicy(cache="off")))
     got, want = port.construction_report, ref.construction_report
@@ -369,7 +378,8 @@ def test_compile_with_every_method_and_engine_gives_one_sfa(method, engine):
     ids = list(PATTERNS[:2])
     port = Scanner.compile(load_bank(ids), device=CPU,
                            construction=ConstructionPolicy(method=method,
-                                                           engine=engine))
+                                                           engine=engine,
+                                                           cache="off"))
     ref = JScanner.compile(jload_bank(ids), JScanPlan(
         construction=JConstructionPolicy(cache="off", method=method,
                                          engine=engine)))
@@ -396,7 +406,8 @@ def scanners():
                                          "PS00016"], 40)):
         port = Scanner.compile(load_bank(ids), device=CPU,
                                sfa_state_budget=budget,
-                               chunking=ChunkPolicy(**chunking))
+                               chunking=ChunkPolicy(**chunking),
+                               construction=ConstructionPolicy(cache="off"))
         ref = JScanner.compile(jload_bank(ids), JScanPlan(
             sfa_state_budget=budget, chunking=JChunkPolicy(**chunking),
             construction=JConstructionPolicy(cache="off")))
