@@ -63,7 +63,22 @@ Phases, in order (any failure raises and exits non-zero):
    byte-identical to the straight scan, its ``jobs.*`` flight totals equal
    to an uninterrupted job's; the main path's four kernels must have
    launched;
-8. with ``--profile`` only: trace one compile and one scan per budget, one
+8. ``distribution="shard_map"`` at world size 1 (a one-rank NCCL world on
+   ``cuda:0``, the mesh the entry points build over the whole world),
+   launch counts as in 6: the bundled bank compiled at budget 512 with
+   the construction sharded over the pattern axis (cache off; its SFAs
+   equal the main phase's) and scanned with the corpus sharded over the
+   data axis (hits and census equal to the main phase's); the bank under
+   forced speculation (hits and ``SpeculationStats`` equal to phase 6's);
+   ``census_windows`` of the long sequence through the budget-20000 bank
+   (equal to phase 5's); each wall is printed beside its local twin's,
+   and the construction, scan and speculation kernels must have launched;
+   then two spawned gloo ranks on the one card (the mesh paths with a real
+   split: patterns, documents and speculation lanes halved) compile and
+   scan the first 4,096 documents, their SFAs, hits and
+   ``SpeculationStats`` equal to the local path's, and their launches
+   counted in the ranks; the process group is destroyed at the end;
+9. with ``--profile`` only: trace one compile and one scan per budget, one
    ``stream`` of the single-pattern phase, the speculative phase's repeat
    scans beside enumeration's and its stream with ``torch.profiler`` (the
    port's ``obs`` spans included) and print where the device time and the
@@ -124,6 +139,7 @@ SINGLE_KERNELS = ("fingerprint_bank", "expand_bank", "match_bank_chunks",
 #: (``ops.form_launches``), so it can tell them from enumeration walks.
 SPEC_KERNELS = ("match_bank_chunks.starts", "spec_resolve")
 SERVICE_KERNELS = MAIN_KERNELS
+DIST_KERNELS = MAIN_KERNELS + ("spec_resolve",)
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the int32 ALU
 #: rate: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, a quarter of the
@@ -989,7 +1005,7 @@ def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
                 method=rep.method, sfa_states=sfa_states,
                 host_construct_s=t_host, plain_locate_s=t_plain_locate,
                 materialised_scan_s=t_naive, whole_mapping_s=t_whole,
-                census=windows.counts.tolist(),
+                census=windows.counts.tolist(), windows_hits=windows.hits,
                 match_ends=int(flags.sum()), stream_composes=stream_composes,
                 profile_stream=(trace(torch, "single stream",
                                       lambda: bank.stream(pieces))
@@ -1175,7 +1191,8 @@ def speculative_path(torch, ops, kref, corpus, seq) -> dict:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the speculative path")
     return dict(walls=walls, stats=stats, launches=launches,
-                modes={"sfa": 18, "enumeration": 5, "speculative": 1})
+                modes={"sfa": 18, "enumeration": 5, "speculative": 1},
+                forced_hits=got1.hits)
 
 
 # --------------------------------------------------------------------------
@@ -1297,6 +1314,242 @@ def service_path(torch, ops, corpus, workdir) -> dict:
               f"kernel {name} was not launched by the service path")
     return dict(walls=walls, launches=launches, preloaded=promoted,
                 cold_rounds=cold_sc.construction_report.rounds)
+
+
+# --------------------------------------------------------------------------
+# Phase 8: distribution="shard_map" at world size 1
+# --------------------------------------------------------------------------
+
+
+def distributed_path(torch, ops, corpus, seq, main, single, spec,
+                     service) -> dict:
+    """The mesh paths of the Scanner and of construction, each held equal
+    to the local result an earlier phase computed (not recomputed here),
+    its wall beside that run's."""
+    import torch.distributed as dist
+
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import ConstructionPolicy, ScanPlan, Scanner
+
+    bank = load_bank()
+    walls = {}
+    path = PathLaunches(ops)
+
+    def run(name, fn):          # a run of the path: timed and counted
+        out, walls[name] = timed(torch, lambda: path.run(fn))
+        return out
+
+    sharded = ConstructionPolicy(cache="off", distribution="shard_map")
+    # 1. Construction over the pattern axis and the scan over the data axis.
+    sc = run("compile", lambda: Scanner.compile(bank, ScanPlan(
+        distribution="shard_map", construction=sharded)))
+    check(dist.is_initialized() and dist.get_world_size() == 1
+          and dist.get_backend() == "nccl" and sc.mesh.device_type == "cuda"
+          and torch.cuda.current_device() == 0,
+          "the mesh is a one-rank NCCL world on cuda:0")
+    # The first compile also sets up NCCL's communicator; a second one
+    # shows the mesh path's own cost.
+    again = run("compile again", lambda: Scanner.compile(bank, ScanPlan(
+        distribution="shard_map", construction=sharded)))
+    res = run("scan", lambda: sc.scan(corpus))
+    census = run("census", lambda: sc.census(corpus))
+    local = main["runs"]["budget 512 (auto)"]
+    check(again.construction_report == sc.construction_report,
+          "sharded construction: the same report twice")
+    check(len(sc.groups) == len(local["scanner"].groups),
+          "sharded construction: the main phase's groups")
+    for g, lg in zip(sc.groups, local["scanner"].groups):
+        check(g.mode == lg.mode and np.array_equal(g.indices, lg.indices)
+              and torch.equal(g.tables, lg.tables),
+              "sharded construction: the main phase's groups")
+        if g.mode == "sfa":
+            check(torch.equal(g.deltas, lg.deltas)
+                  and torch.equal(g.sfa_maps, lg.sfa_maps)
+                  and np.array_equal(g.sfa_states, lg.sfa_states),
+                  "sharded construction: the main phase's SFAs")
+    rep = sc.construction_report
+    check(rep.rounds == local["rounds"] and rep.blown == local["blown"],
+          "sharded construction: the main phase's rounds and blowups")
+    check(np.array_equal(res.hits, local["hits"])
+          and np.array_equal(census, local["census"]),
+          "mesh scan: the main phase's hits and census")
+
+    # 2. Forced speculation under the mesh.
+    forced = run("forced speculation: compile", lambda: Scanner.compile(
+        bank, ScanPlan(mode="speculative", distribution="shard_map")))
+    got = run("forced speculation: scan", lambda: forced.scan(corpus))
+    stats = spec_stats_dict(got.speculation)
+    check(np.array_equal(got.hits, spec["forced_hits"])
+          and stats == spec["stats"]["forced"],
+          "mesh speculation: phase 6's hits and SpeculationStats")
+
+    # 3. census_windows of the long sequence through the budget-20000 bank.
+    wbank = run("compile bank", lambda: Scanner.compile(
+        bank, ScanPlan(mode="sfa", sfa_state_budget=SINGLE_BUDGET,
+                       distribution="shard_map", construction=sharded)))
+    windows = run("census_windows", lambda: wbank.census_windows(
+        seq, WINDOW, STRIDE))
+    check(np.array_equal(windows.hits, single["windows_hits"]),
+          "mesh census_windows: phase 5's windows")
+    launches = path.counts
+
+    # A repeat compile's twin is the service phase's, which also comes
+    # after the process's first compile of the bank.
+    twins = {"compile": local["compile_s"],
+             "compile again": service["walls"]["compile, cache shared, cold"],
+             "scan": local["scan_s"],
+             "census": local["census_s"],
+             "forced speculation: compile": spec["walls"]["forced: compile"],
+             "forced speculation: scan": spec["walls"]["forced: scan"],
+             "compile bank": single["walls"]["compile bank"],
+             "census_windows": single["walls"]["census_windows"]}
+    for name, wall in walls.items():
+        print(f"[distributed] {name}: {wall:.4f} s (local {twins[name]:.4f} "
+              f"s)", flush=True)
+    print(f"[distributed] construction {rep.rounds} rounds, {rep.blown} "
+          f"blown; speculation {stats}", flush=True)
+    print(f"[distributed] kernel launches in the distributed path's own "
+          f"runs: {launches}", flush=True)
+    for name in DIST_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the distributed path")
+    return dict(walls=walls, local_walls=twins, launches=launches,
+                rounds=rep.rounds, stats=stats)
+
+
+#: The two-rank run: two gloo ranks on the one card (``cuda:0`` both; gloo
+#: carries CUDA tensors through host memory), each spawned with the first
+#: TWO_RANK_DOCS documents of the corpus, for at most TWO_RANK_TIMEOUT_S.
+TWO_RANK_DOCS, TWO_RANK_TIMEOUT_S = 4096, 300
+
+
+def two_rank_worker(rank: int, workdir: str) -> None:
+    """One of two ranks on the one card: the bank compiled with the
+    construction sharded over the pattern axis and scanned with the docs
+    sharded over the data axis, then scanned under forced speculation;
+    each rank writes its launch counts, and rank 0 the results."""
+    import datetime
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import ConstructionPolicy, ScanPlan, Scanner
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import make_mesh
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=TWO_RANK_TIMEOUT_S))
+    data = make_mesh((2,), ("data",), device="cuda")
+    patterns = make_mesh((2,), ("pattern",), device="cuda")
+    corpus = np.load(os.path.join(workdir, "corpus.npy"))
+    bank = load_bank()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sc = Scanner.compile(bank, ScanPlan(
+        distribution="shard_map", mesh=data, construction=ConstructionPolicy(
+            cache="off", distribution="shard_map", mesh=patterns)))
+    t1 = time.perf_counter()
+    hits = sc.scan(corpus).hits
+    t2 = time.perf_counter()
+    forced = Scanner.compile(bank, ScanPlan(
+        mode="speculative", distribution="shard_map", mesh=data)).scan(corpus)
+    t3 = time.perf_counter()
+    with open(os.path.join(workdir, f"launches{rank}.json"), "w") as f:
+        json.dump({**ops.launches, **ops.form_launches}, f)
+    if rank == 0:
+        groups = {}
+        for i, g in enumerate(sc.groups):
+            groups[f"{i}_indices"] = g.indices
+            if g.mode == "sfa":
+                groups[f"{i}_deltas"] = g.deltas.cpu().numpy()
+                groups[f"{i}_sfa_maps"] = g.sfa_maps.cpu().numpy()
+        np.savez(os.path.join(workdir, "results.npz"), hits=hits,
+                 forced_hits=forced.hits, **groups)
+        st = forced.speculation
+        with open(os.path.join(workdir, "results.json"), "w") as f:
+            json.dump(dict(rounds=sc.construction_report.rounds,
+                           stats=[st.total_chunks, st.hit_chunks,
+                                  st.repaired_chunks, st.repair_rounds,
+                                  st.fallback_lanes],
+                           walls=dict(compile=t1 - t0, scan=t2 - t1,
+                                      forced=t3 - t2)), f)
+    dist.destroy_process_group()
+
+
+def two_rank_path(torch, corpus, main) -> dict:
+    """Both ranks' results against the local path on the same documents:
+    the main phase's SFAs and hits, and a local forced speculation."""
+    import multiprocessing
+
+    from repro_torch.core.prosite import load_bank
+    from repro_torch.engine import ScanPlan, Scanner
+
+    docs = corpus[:TWO_RANK_DOCS]
+    with tempfile.TemporaryDirectory() as workdir:
+        np.save(os.path.join(workdir, "corpus.npy"), docs)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=two_rank_worker, args=(r, workdir))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.terminate()
+            p.join(timeout=10)
+        check(not hung and [p.exitcode for p in procs] == [0, 0],
+              f"two ranks on one card: exit codes "
+              f"{[p.exitcode for p in procs]}")
+        res = dict(np.load(os.path.join(workdir, "results.npz")))
+        with open(os.path.join(workdir, "results.json")) as f:
+            info = json.load(f)
+        launches = {}
+        for r in range(2):
+            with open(os.path.join(workdir, f"launches{r}.json")) as f:
+                for name, v in json.load(f).items():
+                    launches[name] = launches.get(name, 0) + v
+
+    local = main["runs"]["budget 512 (auto)"]
+    for i, g in enumerate(local["scanner"].groups):
+        check(np.array_equal(res[f"{i}_indices"], g.indices),
+              "two ranks: the main phase's groups")
+        if g.mode == "sfa":
+            check(np.array_equal(res[f"{i}_deltas"], g.deltas.cpu().numpy())
+                  and np.array_equal(res[f"{i}_sfa_maps"],
+                                     g.sfa_maps.cpu().numpy()),
+                  "two ranks: the main phase's SFAs")
+    check(info["rounds"] == local["rounds"]
+          and np.array_equal(res["hits"], local["hits"][:, :TWO_RANK_DOCS]),
+          "two ranks: the main phase's rounds and hits")
+    want = Scanner.compile(load_bank(), ScanPlan(mode="speculative")).scan(
+        docs)
+    st = want.speculation
+    check(np.array_equal(res["forced_hits"], want.hits)
+          and info["stats"] == [st.total_chunks, st.hit_chunks,
+                                st.repaired_chunks, st.repair_rounds,
+                                st.fallback_lanes],
+          "two ranks: forced speculation's hits and stats")
+    print(f"[distributed, 2 ranks] {TWO_RANK_DOCS} docs on cuda:0 through "
+          f"gloo: spawn to exit {wall:.2f} s; rank 0: compile "
+          f"{info['walls']['compile']:.3f} s, scan "
+          f"{info['walls']['scan']:.4f} s, forced speculation "
+          f"{info['walls']['forced']:.4f} s; stats {info['stats']}",
+          flush=True)
+    print(f"[distributed, 2 ranks] kernel launches, both ranks: {launches}",
+          flush=True)
+    for name in DIST_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the two ranks")
+    return dict(wall_s=wall, walls=info["walls"], stats=info["stats"],
+                launches=launches)
 
 
 def trace(torch, label: str, fn, n_top: int = 12) -> dict:
@@ -1454,6 +1707,9 @@ def main(argv=None) -> int:
     spec_res = speculative_path(torch, ops, kref, corpus, seq)
     with tempfile.TemporaryDirectory() as workdir:
         service_res = service_path(torch, ops, corpus, workdir)
+    dist_res = distributed_path(torch, ops, corpus, seq, main_res,
+                                single_res, spec_res, service_res)
+    two_res = two_rank_path(torch, corpus, main_res)
     prof_res = None
     if args.profile:
         from repro_torch import obs
@@ -1484,7 +1740,9 @@ def main(argv=None) -> int:
         by_phase = {"main": main_res["launches"][name],
                     "single": single_res["launches"][name],
                     "speculative": spec_res["launches"][name],
-                    "service": service_res["launches"][name]}
+                    "service": service_res["launches"][name],
+                    "distributed": dist_res["launches"][name],
+                    "distributed, 2 ranks": two_res["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -1499,7 +1757,9 @@ def main(argv=None) -> int:
             kernels[-1]["from_starts_by_phase"] = {
                 phase: res["launches"]["match_bank_chunks.starts"]
                 for phase, res in (("speculative", spec_res),
-                                   ("service", service_res))}
+                                   ("service", service_res),
+                                   ("distributed", dist_res),
+                                   ("distributed, 2 ranks", two_res))}
 
     if args.out:
         summary = dict(
@@ -1508,9 +1768,13 @@ def main(argv=None) -> int:
                          if k not in ("scanner", "hits")}
                   for name, r in main_res["runs"].items()},
             twins=twin_res,
-            single=single_res,
-            speculative=spec_res,
+            single={k: v for k, v in single_res.items()
+                    if k != "windows_hits"},
+            speculative={k: v for k, v in spec_res.items()
+                         if k != "forced_hits"},
             service=service_res,
+            distributed=dist_res,
+            distributed_2_ranks=two_res,
             profile=prof_res,
         )
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1519,6 +1783,9 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1, default=lambda o: (
                 o.tolist() if hasattr(o, "tolist") else str(o)))
 
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ from .batched import (
     METHODS,
     RoundSchedule,
     construct_bank,
+    construct_sfa_jax,
     resolve_method,
     round_schedule,
 )

@@ -33,7 +33,15 @@ fingerprints, blowup and retry verdicts.
 :func:`~.single.construct_sfa` (``engine=`` picks the single-pattern
 engine); ``"auto"`` batches at least :data:`AUTO_BATCH_MIN` patterns and
 loops over fewer, the rule of the reference's ``Scanner``. Both methods give
-bit-identical SFAs. Only ``distribution="local"`` exists in the port so far.
+bit-identical SFAs.
+
+``distribution="shard_map"`` shards the pattern axis of every round over a
+mesh's ``pattern_axis`` (:mod:`..mesh`): every rank keeps the whole
+replicated buffers, runs the round on its contiguous slice of the padded
+active bucket, and the round's outputs gather back in rank order, so every
+rank takes the same host decisions from the same data — the multicore
+experiment of the paper across devices. :func:`construct_sfa_jax` (the
+reference's name) is the ``P = 1`` bank.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from ..core.multipattern import PatternBank
 from ..device import resolve_device
 from ..kernels import ops as kernel_ops
 from ..kernels import ref as kernel_ref
+from ..mesh import all_gather, axis_rank, axis_size, world_mesh
 from .types import (
     BankConstructionResult,
     BankStats,
@@ -279,7 +288,7 @@ def _state_cap(n: int, max_states: int) -> int:
 
 def _bucket_sizes(P: int, quantum: int, growth: int = 4) -> list:
     """Active-set padding buckets: shrinking by ``growth`` from P, rounded up
-    to multiples of ``quantum`` (a future mesh's pattern-axis size; 1 on one
+    to multiples of ``quantum`` (the mesh's pattern-axis size; 1 on one
     device) — O(log P) round shapes."""
 
     def up(x):
@@ -427,6 +436,8 @@ def construct_bank(
     method: str = "batched",
     engine: str = "vectorized",
     distribution: str = "local",
+    mesh=None,
+    pattern_axis: str = "pattern",
     on_blowup: str = "skip",
     fingerprint_backend: str = "auto",
     expand_backend: str = "auto",
@@ -447,6 +458,12 @@ def construct_bank(
     whose closure exceeds ``max_states`` in ``result.blown`` (their slot in
     ``sfas`` is ``None``); ``"raise"`` raises :class:`~.types.StateBlowup`
     instead.
+
+    ``distribution="shard_map"`` (batched method only) shards the pattern
+    axis of every round over ``mesh``'s ``pattern_axis`` (default: a
+    one-axis mesh over the whole world, the reference's mesh over every
+    device); every rank of the mesh calls with the same arguments and gets
+    the same result. The mesh's device type must be ``device``'s.
 
     ``fingerprint_backend`` / ``expand_backend`` pick the round's stages:
     ``"kernel"`` (the CUDA kernel through :mod:`..kernels.ops`), ``"plain"``
@@ -470,17 +487,20 @@ def construct_bank(
     if not dfas:
         raise ValueError("empty pattern bank")
     method = resolve_method(method, len(dfas))
-    if distribution == "shard_map":
-        raise NotImplementedError(
-            "distribution='shard_map' is not ported yet (multi-device "
-            "construction is a later slice of the port)")
-    if distribution != "local":
-        raise ValueError(
-            f"distribution must be 'local', got {distribution!r}")
+    if distribution not in ("local", "shard_map"):
+        raise ValueError(f"distribution must be 'local' or 'shard_map', "
+                         f"got {distribution!r}")
     if on_blowup not in ("skip", "raise"):
         raise ValueError(
             f"on_blowup must be 'skip' or 'raise', got {on_blowup!r}")
     dev = resolve_device(device)
+    if distribution == "local" or method == "loop":
+        mesh = None
+    elif mesh is None:
+        mesh = world_mesh(pattern_axis, dev.type)
+    elif mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type!r} mesh cannot construct on "
+                         f"device {device!r}")
     fp_backend = _resolve_backend(fingerprint_backend, FINGERPRINT_BACKENDS,
                                   "fingerprint_backend", dev)
     exp_backend = _resolve_backend(expand_backend, EXPAND_BACKENDS,
@@ -506,6 +526,7 @@ def construct_bank(
                 fp_backend=fp_backend, expand_backend=exp_backend,
                 bucketing=bucketing, bucket_growth=bucket_growth,
                 weight_fn=_weight_fn or _default_weight_fn, device=dev,
+                mesh=mesh, pattern_axis=pattern_axis,
             )
     obs.counter("construction.banks").inc()
     obs.counter("construction.patterns").inc(len(dfas))
@@ -538,7 +559,7 @@ def _construction_partition(sizes, bucketing: str):
 
 def _construct_bucketed(dfas, *, max_states, tile, max_retries, poly_index,
                         fp_backend, expand_backend, bucketing, bucket_growth,
-                        weight_fn, device):
+                        weight_fn, device, mesh, pattern_axis):
     """The size-bucketed batched driver: partition the bank by DFA state
     count, close each sub-bank with bucket-local ``n_max``/capacity/round
     shapes, and scatter results back to the original pattern order.
@@ -557,7 +578,8 @@ def _construct_bucketed(dfas, *, max_states, tile, max_retries, poly_index,
             dfas, max_states=max_states, tile=tile, max_retries=max_retries,
             poly_index=poly_index, fp_backend=fp_backend,
             expand_backend=expand_backend, bucket_growth=bucket_growth,
-            weight_fn=weight_fn, device=device,
+            weight_fn=weight_fn, device=device, mesh=mesh,
+            pattern_axis=pattern_axis,
         )
 
     P = len(dfas)
@@ -586,7 +608,7 @@ def _construct_bucketed(dfas, *, max_states, tile, max_retries, poly_index,
                 max_retries=max_retries, poly_index=poly_index,
                 fp_backend=fp_backend, expand_backend=expand_backend,
                 bucket_growth=bucket_growth, weight_fn=sub_weight_fn,
-                device=device,
+                device=device, mesh=mesh, pattern_axis=pattern_axis,
             )
         ii = np.asarray(idx, dtype=np.int64)
         stats.pattern_rounds[ii] = sub.stats.pattern_rounds
@@ -651,15 +673,16 @@ def _construct_loop(dfas, *, max_states, max_retries, engine, poly_index,
 
 def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
                        fp_backend, expand_backend, bucket_growth, weight_fn,
-                       device):
+                       device, mesh, pattern_axis):
     t0 = time.perf_counter()
     bank = PatternBank.from_dfas(dfas)  # validates the shared alphabet
     P, n, k = bank.n_patterns, bank.n_max, bank.n_symbols
     if n >= 1 << 16:
         raise ValueError("batched engine packs 16-bit state ids")
     W = (n + 1) // 2
+    quantum = 1 if mesh is None else axis_size(mesh, pattern_axis)
     sched = round_schedule(
-        tile=tile, n=n, k=k, max_states=max_states, P=P,
+        tile=tile, n=n, k=k, max_states=max_states, P=P, quantum=quantum,
         bucket_growth=bucket_growth,
     )
     capacity = sched.capacities[0]
@@ -751,19 +774,28 @@ def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
         )
 
         # The round runs on the bucket's own copies (padding rows repeat the
-        # first active pattern and are never written back).
+        # first active pattern and are never written back). Under a mesh a
+        # rank runs its slice of the bucket — an all-padding slice too, so
+        # every rank joins every gather — and the slices gather back.
         round_t0 = time.perf_counter()
         with obs.span("construction.round", round=stats.rounds,
                       bucket=bucket, capacity=capacity):
-            o_states, o_fp_hi, o_fp_lo, o_delta, o_n, o_frontier, o_coll = (
-                _bucket_round(
-                    tables[idx], states[idx], fp_hi[idx], fp_lo[idx],
-                    delta[idx], n_states[idx], frontier[idx], tensor(act_np),
-                    weights[idx], limbs[idx], masks[idx],
-                    tile=tile, k=k, capacity=capacity,
-                    fp_backend=fp_backend, expand_backend=expand_backend,
-                )
+            ridx, ract = idx, tensor(act_np)
+            if mesh is not None:
+                per = bucket // quantum
+                lo = axis_rank(mesh, pattern_axis) * per
+                ridx, ract = ridx[lo:lo + per], ract[lo:lo + per]
+            outs = _bucket_round(
+                tables[ridx], states[ridx], fp_hi[ridx], fp_lo[ridx],
+                delta[ridx], n_states[ridx], frontier[ridx], ract,
+                weights[ridx], limbs[ridx], masks[ridx],
+                tile=tile, k=k, capacity=capacity,
+                fp_backend=fp_backend, expand_backend=expand_backend,
             )
+            if mesh is not None:
+                outs = [all_gather(o, mesh, pattern_axis) for o in outs]
+            o_states, o_fp_hi, o_fp_lo, o_delta, o_n, o_frontier, o_coll = \
+                outs
             m = act.size
             states[live] = o_states[:m]
             fp_hi[live] = o_fp_hi[:m]
@@ -840,3 +872,25 @@ def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
             stats=pstats,
         )
     return BankConstructionResult(sfas=sfas, blown=blown, stats=stats)
+
+
+# --------------------------------------------------------------------------
+# The single-pattern bank engine (P = 1 special case)
+# --------------------------------------------------------------------------
+
+
+def construct_sfa_jax(dfa: DFA, *, poly_index: int = 0,
+                      max_states: int = 200_000, tile: int = 256,
+                      device="cuda") -> SFA:
+    """The bank construction with one pattern, under the reference's name
+    (its jitted engine became the ``P = 1`` bank; ``engine="jax"`` of
+    :func:`~.single.construct_sfa`). Raises
+    :class:`~.types.FingerprintCollision` on a detected collision;
+    :func:`~.single.construct_sfa` retries with the next polynomial."""
+    result = construct_bank(
+        [dfa], max_states=max_states, tile=tile, poly_index=poly_index,
+        max_retries=1, method="batched", on_blowup="raise", device=device,
+    )
+    sfa = result.sfas[0]
+    sfa.stats.engine = "jax"
+    return sfa

@@ -10,8 +10,8 @@
   collision, retry with the next irreducible polynomial of the sequence
   (attempt ``a`` uses polynomial ``poly_index + a``). ``engine="jax"``
   keeps the reference's name for the ``P = 1`` case of
-  :func:`~.batched.construct_bank`, so the engine lists of the two packages
-  match.
+  :func:`~.batched.construct_bank` (:func:`~.batched.construct_sfa_jax`),
+  so the engine lists of the two packages match.
 
 All engines give bit-identical SFAs, so a :class:`~.cache.SFACache` entry
 answers :func:`construct_sfa` whichever engine built it.
@@ -22,6 +22,7 @@ from __future__ import annotations
 from ..core.dfa import DFA
 from ..core.fingerprint import BarrettConstants, nth_poly_low
 from ..device import resolve_device
+from .batched import construct_sfa_jax
 from .stores import (
     ExhaustiveStore,
     FingerprintScanStore,
@@ -84,23 +85,6 @@ def construct_sfa_vectorized(
     return close_bulk(dfa, store, stats, max_states=max_states, tile=tile)
 
 
-def _construct_sfa_bank(dfa: DFA, *, poly_index: int = 0,
-                        max_states: int = 200_000, tile: int = 256,
-                        device="cuda") -> SFA:
-    """The bank construction with one pattern (the reference's
-    ``engine="jax"``). Raises :class:`FingerprintCollision` on a detected
-    collision; :func:`construct_sfa` retries with the next polynomial."""
-    from .batched import construct_bank
-
-    result = construct_bank(
-        [dfa], max_states=max_states, tile=tile, poly_index=poly_index,
-        max_retries=1, method="batched", on_blowup="raise", device=device,
-    )
-    sfa = result.sfas[0]
-    sfa.stats.engine = "jax"
-    return sfa
-
-
 def construct_sfa(
     dfa: DFA,
     *,
@@ -150,7 +134,7 @@ def construct_sfa(
     build = {
         "sequential": construct_sfa_sequential,
         "vectorized": construct_sfa_vectorized,
-        "jax": _construct_sfa_bank,
+        "jax": construct_sfa_jax,
     }[engine]
     last: Exception | None = None
     try:

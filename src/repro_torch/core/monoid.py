@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 
+from ..mesh import all_gather, axis_rank
+
 
 @dataclass(frozen=True)
 class Monoid:
@@ -123,3 +125,22 @@ def exclusive_scan(monoid: Monoid, xs: torch.Tensor,
     inclusive = torch.movedim(scan(monoid, xs, axis=axis), axis, 0)
     first = monoid.identity(inclusive[:1])
     return torch.movedim(torch.cat([first, inclusive[:-1]]), 0, axis)
+
+
+def shard_reduce(monoid: Monoid, x_local: torch.Tensor, mesh,
+                 axis_name: str) -> torch.Tensor:
+    """Combine one element a rank along a mesh axis, in rank order: one
+    ``all_gather`` of the lifted elements (an SFA mapping is n ints), then a
+    local fold (paper §IV-C at pod scale). -> the total combine, the same
+    on every rank of the axis."""
+    return reduce(monoid, all_gather(x_local[None], mesh, axis_name), axis=0)
+
+
+def shard_exclusive_scan(monoid: Monoid, x_local: torch.Tensor, mesh,
+                         axis_name: str) -> torch.Tensor:
+    """Exclusive prefix-combine across a mesh axis: rank ``i`` receives the
+    combine of ranks ``[0, i)``'s elements (the identity on rank 0) — the
+    entry functions of distributed matching."""
+    gathered = all_gather(x_local[None], mesh, axis_name)
+    return exclusive_scan(monoid, gathered, axis=0)[axis_rank(mesh,
+                                                              axis_name)]

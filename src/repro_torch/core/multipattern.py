@@ -119,6 +119,31 @@ class PatternBank:
         )
 
 
+def bucket_by_size(dfas: Sequence[DFA], ids: Iterable[str] | None = None,
+                   edges: Sequence[int] = (8, 16, 32, 64, 128, 256, 1024),
+                   ) -> list:
+    """Split patterns into size-bucketed banks to bound padding waste.
+
+    One padded stack charges every pattern ``n_max``-wide walks; bucketing
+    by state count (bucket ``i`` holds patterns with ``n <= edges[i]``)
+    keeps per-bucket padding below ~2x while every bucket still runs as one
+    batch. Returns the non-empty banks, smallest bucket first. The partition
+    is :func:`.bucketing.partition_by_size`, as construction's.
+    """
+    from .bucketing import partition_by_size
+
+    ids = list(ids) if ids is not None else [
+        f"pattern_{p}" for p in range(len(dfas))]
+    try:
+        parts = partition_by_size([d.n_states for d in dfas], edges)
+    except ValueError as e:
+        raise ValueError(str(e).replace("item", "pattern", 1)) from None
+    return [
+        PatternBank.from_dfas([dfas[i] for i in idx], [ids[i] for i in idx])
+        for _, idx in parts
+    ]
+
+
 def census_sequential(bank: PatternBank, corpus: np.ndarray) -> np.ndarray:
     """Reference census: plain per-pattern, per-sequence DFA loop (paper
     Fig. 1c applied P × D times). The differential-test oracle."""

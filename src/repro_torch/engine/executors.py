@@ -17,6 +17,12 @@ the SFA path's mapping rows. ``match_fn`` / ``monoid`` / ``fold_rows`` swap
 in other functions of the same signature, such as the plain versions of
 ``kernels.ref``. The rest is plain PyTorch gathers, as the reference left it
 to XLA.
+
+The distributed builders (``distributed_*_fn``, ``distributed_bank_matcher``
+and ``throughput_matcher``) are the reference's ``shard_map`` builders over
+a :mod:`torch.distributed` mesh (:mod:`..mesh`): every rank calls the
+returned function with the whole arguments, runs the local path above on
+its slice, and gets the whole result back.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..core.dfa import DFA
 from ..core.matching import chunk_accept_trace
 from ..device import resolve_device
 from ..kernels import ops
+from ..mesh import all_gather, all_reduce, local_shard
 
 FN = M.function_monoid()
 
@@ -246,3 +253,118 @@ def hits_of_mappings(maps: torch.Tensor, accepting: torch.Tensor,
     idx = starts.to(torch.int64)[:, None, None].expand(P, D, 1)
     finals = maps.gather(2, idx)[:, :, 0]
     return accepting.gather(1, finals.to(torch.int64))
+
+
+def bank_hits(tables: torch.Tensor, accepting: torch.Tensor,
+              starts: torch.Tensor, corpus: torch.Tensor,
+              n_chunks: int = 8) -> torch.Tensor:
+    """Hit matrix of a corpus against the bank (enumeration): (P, n, k),
+    (P, n) bool, (P,), (D, L) -> (P, D) bool."""
+    return hits_of_mappings(bank_doc_mappings(tables, corpus, n_chunks),
+                            accepting, starts)
+
+
+def census_bank(tables: torch.Tensor, accepting: torch.Tensor,
+                starts: torch.Tensor, corpus: torch.Tensor,
+                n_chunks: int = 8) -> torch.Tensor:
+    """Per-pattern hit counts over a corpus, (P,) int32 — the ScanProsite
+    census."""
+    return bank_hits(tables, accepting, starts, corpus,
+                     n_chunks).sum(1, dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Distributed builders (the reference's shard_map, over a mesh's ranks)
+# --------------------------------------------------------------------------
+
+
+def distributed_match_fn(mesh, table_shape: tuple, axis_name: str = "data"):
+    """-> ``matcher(table, symbols, sub_chunks=8)``: the (n,) mapping of
+    the whole input. ``symbols`` (L,) shard over ``axis_name``; each rank
+    walks its shard in ``sub_chunks`` chunks, folds them, and the ranks'
+    functions combine in one :func:`~..core.monoid.shard_reduce`."""
+
+    def matcher(table, symbols, sub_chunks: int = 8):
+        shard = local_shard(symbols, mesh, axis_name, what="input length")
+        local = match_parallel_enumeration(table, shard, sub_chunks)
+        return M.shard_reduce(FN, local[None], mesh, axis_name)[0]
+
+    return matcher
+
+
+def throughput_matcher(mesh, start: int = 0, axis_name: str = "data"):
+    """-> ``matcher(table, accepting, batch)``: (B,) accept flags of a
+    (B, L) batch of independent strings, rows sharded over ``axis_name``
+    (the many-strings workload of the related work). Each row is one chunk
+    walked from every state; its mapping is read at ``start``."""
+
+    def matcher(table, accepting, batch):
+        rows = local_shard(batch, mesh, axis_name, what="batch size")
+        maps = ops.match_chunks(table, rows.contiguous())      # (B_r, n)
+        return all_gather(accepting[maps[:, start].to(torch.int64)],
+                          mesh, axis_name)
+
+    return matcher
+
+
+def distributed_bank_matcher(mesh, pattern_axis: str = "model",
+                             data_axis: str = "data"):
+    """-> ``matcher(tables, symbols, sub_chunks=8)``: (P, n) whole-input
+    mappings, patterns sharded over ``pattern_axis`` and symbols over
+    ``data_axis`` of a 2-D mesh. Each rank folds its patterns' chunk
+    functions on its symbols, one ``shard_reduce`` over ``data_axis``
+    combines them (one all_gather of (P_local, n) ints), and the pattern
+    shards gather back."""
+
+    def matcher(tables, symbols, sub_chunks: int = 8):
+        local_tables = local_shard(tables, mesh, pattern_axis,
+                                   what="pattern count")
+        shard = local_shard(symbols, mesh, data_axis, what="input length")
+        local = match_bank_parallel(local_tables, shard, sub_chunks)
+        maps = M.shard_reduce(FN, local, mesh, data_axis)
+        return all_gather(maps, mesh, pattern_axis)
+
+    return matcher
+
+
+def distributed_census_fn(mesh, pattern_axis: str = "model",
+                          data_axis: str = "data", n_chunks: int = 8):
+    """-> ``census(tables, accepting, starts, corpus)``: (P,) int32 hit
+    counts, corpus rows sharded over ``data_axis`` and patterns over
+    ``pattern_axis``; the ranks' partial counts combine with one sum over
+    ``data_axis`` (the reference's ``psum``)."""
+
+    def census(tables, accepting, starts, corpus):
+        args = [local_shard(a, mesh, pattern_axis, what="pattern count")
+                for a in (tables, accepting, starts)]
+        docs = local_shard(corpus, mesh, data_axis, what="doc count")
+        counts = all_reduce(census_bank(*args, docs, n_chunks), mesh,
+                            data_axis, "sum")
+        return all_gather(counts, mesh, pattern_axis)
+
+    return census
+
+
+def distributed_doc_mappings_fn(mesh, data_axis: str = "data",
+                                n_chunks: int = 8, sfa_mode: bool = False):
+    """The Scanner's ``shard_map`` path: docs shard over ``data_axis``
+    (the bank is replicated — its stacks are small next to a corpus), each
+    rank computes its docs' final mappings with the local executor, and the
+    doc axis gathers back. -> ``fn(deltas, sfa_maps, corpus)`` (SFA mode)
+    or ``fn(tables, corpus)``, each (P, D, n) on every rank."""
+
+    def gather(maps):
+        return all_gather(maps, mesh, data_axis, dim=1)
+
+    def shard(corpus):
+        return local_shard(corpus, mesh, data_axis, what="doc count")
+
+    if sfa_mode:
+        def fn(deltas, sfa_maps, corpus):
+            return gather(bank_doc_mappings_sfa(deltas, sfa_maps,
+                                                shard(corpus), n_chunks))
+    else:
+        def fn(tables, corpus):
+            return gather(bank_doc_mappings(tables, shard(corpus),
+                                            n_chunks))
+    return fn

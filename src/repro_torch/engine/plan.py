@@ -1,9 +1,9 @@
 """Execution plans of the port's ``Scanner``.
 
 A :class:`ScanPlan` says *how* to run a scan — matching mode, backend,
-device, chunking, construction — while the :class:`~.scanner.Scanner` says
-*what* to scan. The fields follow the reference package's plan; this slice
-of the port carries the subset it runs:
+device, distribution, chunking, construction — while the
+:class:`~.scanner.Scanner` says *what* to scan. The fields follow the
+reference package's plan:
 
 * ``mode``: ``"auto"``, ``"sfa"``, ``"enumeration"`` or
   ``"speculative"``;
@@ -11,12 +11,12 @@ of the port carries the subset it runs:
   :mod:`..kernels.ops`; its plain version for a CPU device) or
   ``"reference"`` (the pure NumPy oracle);
 * ``device``: ``"cuda"`` by default; the tests pass ``"cpu"``;
+* ``distribution``: ``"local"`` or ``"shard_map"`` (documents shard over
+  a :mod:`torch.distributed` mesh, :mod:`..mesh`);
 * ``construction``: with the content-addressed SFA cache (``"shared"`` by
-  default, as in the reference) and an optional persistent store;
+  default, as in the reference), an optional persistent store, and its own
+  ``distribution`` (patterns shard over a mesh);
 * ``speculation``: the reference's :class:`SpeculationPolicy`.
-
-Multi-device distribution (the reference's ``distribution``/``mesh``) is a
-later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 MODES = ("auto", "sfa", "enumeration", "speculative")
 BACKENDS = ("reference", "kernel")
 SPECULATION_SOURCES = ("sample", "store")
+DISTRIBUTIONS = ("local", "shard_map")
 CONSTRUCTION_METHODS = ("auto", "batched", "loop")
 CONSTRUCTION_ENGINES = ("vectorized", "sequential", "jax")
 CONSTRUCTION_FP_BACKENDS = ("auto", "kernel", "plain")
@@ -94,6 +95,10 @@ class ConstructionPolicy:
     ``expand_backend``: ``"kernel"``, ``"plain"`` or ``"auto"`` (kernel on a
     CUDA device). ``bucketing`` / ``bucket_growth``: size-bucketed banks and
     the shape schedule's bucket shrink factor.
+    ``distribution``: ``"shard_map"`` shards the pattern axis of the
+    batched rounds over ``mesh``'s ``pattern_axis`` (default: a one-axis
+    mesh over the whole world named ``pattern_axis``); ``"local"`` keeps
+    construction on one device.
     """
 
     method: str = "auto"
@@ -101,6 +106,9 @@ class ConstructionPolicy:
     tile: int = 128
     cache: Any = "shared"
     store: Any = None
+    distribution: str = "local"
+    mesh: Any = None
+    pattern_axis: str = "pattern"
     max_retries: int = 4
     fingerprint_backend: str = "auto"
     expand_backend: str = "auto"
@@ -116,6 +124,7 @@ class ConstructionPolicy:
             ("expand_backend", self.expand_backend,
              CONSTRUCTION_EXPAND_BACKENDS),
             ("bucketing", self.bucketing, CONSTRUCTION_BUCKETINGS),
+            ("distribution", self.distribution, DISTRIBUTIONS),
         )
         for name, value, choices in checks:
             if value not in choices:
@@ -254,15 +263,24 @@ class ScanPlan:
     speculative group runs the speculative executor under either, as in
     the reference).
     ``device``: where construction and scans run.
+    ``distribution``: ``"local"`` or ``"shard_map"``: documents shard over
+    ``data_axis`` of ``mesh``, every rank of the process group calling with
+    the whole corpus and getting the whole result. With ``mesh=None`` the
+    mesh spans the whole world (the reference builds a one-device mesh:
+    the same mesh at world size 1). ``shard_map`` needs
+    ``backend="kernel"``, and a mesh on the plan's device type.
     """
 
     mode: str = "auto"
     backend: str = "kernel"
     device: Any = "cuda"
+    distribution: str = "local"
     chunking: ChunkPolicy = field(default_factory=ChunkPolicy)
     construction: ConstructionPolicy = field(default_factory=ConstructionPolicy)
     speculation: SpeculationPolicy = field(default_factory=SpeculationPolicy)
     sfa_state_budget: int = DEFAULT_SFA_STATE_BUDGET
+    mesh: Any = None
+    data_axis: str = "data"
 
     def validate(self) -> "ScanPlan":
         if self.mode not in MODES:
@@ -279,6 +297,19 @@ class ScanPlan:
                              f"got {self.device!r}")
         if self.sfa_state_budget < 1:
             raise ValueError("sfa_state_budget must be >= 1")
+        if self.distribution not in DISTRIBUTIONS:
+            raise ValueError(
+                f"distribution must be one of {DISTRIBUTIONS}, "
+                f"got {self.distribution!r}")
+        if self.distribution == "shard_map" and self.backend != "kernel":
+            raise ValueError(
+                "distribution='shard_map' requires backend='kernel' (the "
+                "reference backend has no mesh story)")
+        for mesh in (self.mesh, self.construction.mesh):
+            if mesh is not None and mesh.device_type != dev_type:
+                raise ValueError(
+                    f"a {mesh.device_type!r} mesh cannot run a plan on "
+                    f"device {self.device!r}")
         self.chunking.validate()
         self.construction.validate()
         self.speculation.validate()

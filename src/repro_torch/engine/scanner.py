@@ -22,6 +22,13 @@ m-lane chunk walk and the ``spec_resolve`` kernel
 (:mod:`..speculative`). Results are bit-identical to the reference
 package's ``Scanner`` on the same patterns and documents, its
 :class:`~..speculative.SpeculationStats` and its ``obs`` counters included.
+
+Under ``distribution="shard_map"`` every rank of a :mod:`torch.distributed`
+mesh calls the same entry point with the whole corpus: ``scan`` /
+``census`` / ``mapping`` / ``accepts`` / ``census_windows`` shard the
+documents over the plan's ``data_axis`` (:mod:`..mesh`) and every rank gets
+the whole result; ``locate`` and ``stream`` run locally, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ from ..core.bucketing import partition_by_size
 from ..core.dfa import DFA
 from ..core.multipattern import PatternBank
 from ..device import resolve_device
+from ..mesh import mesh_size, world_mesh
 from ..speculative import (
     HotStateProfile,
     SpeculationStats,
+    distributed_speculative_finals_fn,
     profile_hot_states,
     speculative_bank_finals,
     stack_profile_states,
@@ -140,6 +149,8 @@ class PatternGroup:
     deltas: torch.Tensor = None    # (Pg, S, k) int32 — stacked SFA tables
     sfa_maps: torch.Tensor = None  # (Pg, S, n) int32 — SFA state -> mapping
     sfa_states: np.ndarray | None = None  # (Pg,) true SFA state counts
+    _dist_fn: Any = field(default=None, repr=False)
+    _spec_dist_fn: Any = field(default=None, repr=False)
     _spec_profile: Any = field(default=None, repr=False)  # memoised (Pg, m)
 
     @property
@@ -247,6 +258,9 @@ def _resolve_sfas(ids, dfas, plan: ScanPlan, device: torch.device):
             max_retries=policy.max_retries,
             method=method,
             engine=policy.engine,
+            distribution=policy.distribution,
+            mesh=policy.mesh,
+            pattern_axis=policy.pattern_axis,
             fingerprint_backend=policy.fingerprint_backend,
             expand_backend=policy.expand_backend,
             bucketing=policy.bucketing,
@@ -309,13 +323,14 @@ class ScanResult:
 class Scanner:
     """A compiled multi-pattern scan engine. Build with :meth:`compile`."""
 
-    def __init__(self, ids, dfas, groups, plan, single, device,
+    def __init__(self, ids, dfas, groups, plan, single, device, mesh=None,
                  construction_report: ConstructionReport | None = None):
         self.ids = ids
         self.plan = plan
         self.groups = groups
         self.single = single
         self.device = device
+        self.mesh = mesh
         self.construction_report = construction_report or ConstructionReport()
         self.alphabet = dfas[0].alphabet
         self.n_symbols = dfas[0].n_symbols
@@ -354,6 +369,13 @@ class Scanner:
                       mode=plan.mode, backend=plan.backend):
             trace_id = obs.current_trace_id()
             modes, sfas, report = _resolve_sfas(ids, dfas, plan, device)
+            # The reference builds a one-device mesh here; a mesh over the
+            # whole world is that mesh at world size 1, and at a larger one
+            # it shards instead of repeating the work on every rank.
+            mesh = None
+            if plan.distribution == "shard_map":
+                mesh = plan.mesh if plan.mesh is not None else world_mesh(
+                    plan.data_axis, device.type)
             groups = []
             for mode in ("sfa", "enumeration", "speculative"):
                 member = [i for i, m in enumerate(modes) if m == mode]
@@ -374,15 +396,16 @@ class Scanner:
                     groups.append(cls._build_group(
                         part, [dfas[i] for i in part],
                         [ids[i] for i in part], mode,
-                        [sfas.get(i) for i in part], device,
+                        [sfas.get(i) for i in part], plan, device, mesh,
                     ))
         obs.counter("engine.compiles").inc()
-        scanner = cls(ids, dfas, groups, plan, single, device, report)
+        scanner = cls(ids, dfas, groups, plan, single, device, mesh, report)
         scanner.last_trace_id = trace_id
         return scanner
 
     @staticmethod
-    def _build_group(indices, dfas, gids, mode, sfas, device) -> PatternGroup:
+    def _build_group(indices, dfas, gids, mode, sfas, plan, device,
+                     mesh) -> PatternGroup:
         bank = PatternBank.from_dfas(dfas, gids)
         tables, accepting, starts = bank.to(device)
         g = PatternGroup(
@@ -394,6 +417,14 @@ class Scanner:
             g.deltas = torch.as_tensor(deltas, device=device)
             g.sfa_maps = torch.as_tensor(maps, device=device)
             g.sfa_states = sizes
+        if mesh is not None:
+            n_chunks = plan.chunking.n_chunks
+            g._dist_fn = X.distributed_doc_mappings_fn(
+                mesh, plan.data_axis, n_chunks, sfa_mode=(mode == "sfa"))
+            if mode == "speculative":
+                g._spec_dist_fn = distributed_speculative_finals_fn(
+                    mesh, plan.data_axis, n_chunks,
+                    plan.speculation.max_repair_rounds)
         return g
 
     # -- encoding helpers ---------------------------------------------------
@@ -454,8 +485,21 @@ class Scanner:
                 g.tables, maps.reshape(Pg, D * n), tail).view(Pg, D, n)
         return maps
 
+    def _check_mesh_docs(self, D: int) -> None:
+        """The reference's check, before any collective, on every rank."""
+        n_dev = mesh_size(self.mesh)
+        if D % n_dev:
+            raise ValueError(
+                f"shard_map distribution needs doc count ({D}) divisible "
+                f"by the mesh's {self.plan.data_axis} size ({n_dev})")
+
     def _head_mappings(self, g: PatternGroup, corpus: np.ndarray,
                        head: torch.Tensor, n_chunks: int) -> torch.Tensor:
+        if self.mesh is not None:
+            self._check_mesh_docs(head.shape[0])
+            if g.mode == "sfa":
+                return g._dist_fn(g.deltas, g.sfa_maps, head)
+            return g._dist_fn(g.tables, head)
         if self.plan.backend == "reference":
             maps = _reference_doc_mappings(
                 g.bank.tables, corpus[:, : head.shape[1]])
@@ -572,9 +616,13 @@ class Scanner:
                 spec = torch.as_tensor(self._speculation_profile(g, corpus),
                                        device=self.device)
                 head = corpus_t[:, :head_len]
-                out = speculative_bank_finals(
-                    g.tables, spec, starts, head, n_chunks,
-                    pol.max_repair_rounds)
+                if self.mesh is not None:
+                    self._check_mesh_docs(D)
+                    out = g._spec_dist_fn(g.tables, spec, starts, head)
+                else:
+                    out = speculative_bank_finals(
+                        g.tables, spec, starts, head, n_chunks,
+                        pol.max_repair_rounds)
                 finals, resolved = out[0], out[1]
                 stats = SpeculationStats.of(out, Pg * D * n_chunks)
                 if stats.fallback_lanes:
@@ -690,9 +738,15 @@ class Scanner:
             return ScanResult(hits=hits, ids=self.ids)
         B = W + m - 1
         blocks = np.ascontiguousarray(enc[: B * stride].reshape(B, stride))
+        if self.mesh is not None:
+            # Blocks are the "docs" of the mesh path: pad the block axis to
+            # a multiple of the mesh size with zero rows, cropped below.
+            pad_rows = -B % mesh_size(self.mesh)
+            blocks = np.concatenate(
+                [blocks, np.zeros((pad_rows, stride), dtype=np.int32)])
         blocks_t = torch.as_tensor(blocks, device=self.device)
         for g in self.groups:
-            maps = self._group_doc_mappings(g, blocks, blocks_t)  # (Pg, B, n)
+            maps = self._group_doc_mappings(g, blocks, blocks_t)[:, :B]
             wmaps = X.sliding_window_mappings(maps, m)            # (Pg, W, n)
             acc = X.hits_of_mappings(wmaps, g.accepting, g.starts)
             hits[g.indices, :] = acc.cpu().numpy()
@@ -771,7 +825,7 @@ class Scanner:
         lines = [
             f"Scanner: {self.n_patterns} pattern(s), alphabet |Σ|="
             f"{len(self.alphabet)}, plan=({self.plan.mode}/"
-            f"{self.plan.backend}/{self.device}, "
+            f"{self.plan.backend}/{self.plan.distribution}/{self.device}, "
             f"n_chunks={self.plan.chunking.n_chunks})",
             f"  construction: {r.rounds} round(s) via {r.method}, "
             f"cache {r.cache_hits} hit(s) / {r.cache_misses} miss(es), "

@@ -19,6 +19,9 @@ On the card that is two launches:
 2. :func:`~..kernels.ops.spec_resolve`, one thread per (pattern, doc) lane
    walking the C chunks in order, with the totals read back in one sync.
 
+:func:`distributed_speculative_finals_fn` runs the same two launches on
+each rank's slice of the documents of a mesh.
+
 The results equal the reference's ``speculative_bank_finals`` on all five
 outputs; ``kernels/ref.py::spec_resolve`` runs the reference's rounds
 literally and is the plain version of step 2.
@@ -31,6 +34,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..kernels import ops
+from ..mesh import all_gather, all_reduce, local_shard
 
 
 @dataclass(frozen=True)
@@ -116,10 +120,26 @@ def speculative_bank_finals(tables: torch.Tensor, spec_states: torch.Tensor,
                       n_chunks, max_rounds)
 
 
-def distributed_speculative_finals_fn(*args, **kwargs):
-    """The reference's ``shard_map`` builder of the speculative path (docs
-    sharded over a mesh). Multi-GPU distribution is queue 1 item 8 of the
-    port's ROADMAP, not ported yet."""
-    raise NotImplementedError(
-        "distributed_speculative_finals_fn: multi-GPU distribution "
-        "(ROADMAP queue 1 item 8) is not ported yet")
+def distributed_speculative_finals_fn(mesh, data_axis: str = "data",
+                                      n_chunks: int = 8,
+                                      max_rounds: int = 8):
+    """The Scanner's ``shard_map`` path for speculative mode: docs shard
+    over ``data_axis`` of ``mesh`` (tables and profiles replicated), each
+    rank runs the whole local validate-and-repair on its docs — no
+    collective inside it, so the ranks' repair depths may differ — then
+    ``finals``/``resolved`` gather on the doc axis and the counters combine
+    (a sum of the hit and repaired counts, the max of the rounds). ->
+    ``fn(tables, spec_states, starts, corpus)`` with the output contract of
+    :func:`speculative_bank_finals`, the same on every rank."""
+
+    def fn(tables, spec_states, starts, corpus):
+        shard = local_shard(corpus, mesh, data_axis, what="doc count")
+        finals, resolved, hits, repaired, rounds = speculative_bank_finals(
+            tables, spec_states, starts, shard, n_chunks, max_rounds)
+        hits, repaired = all_reduce(torch.stack([hits, repaired]), mesh,
+                                    data_axis, "sum")
+        return (all_gather(finals, mesh, data_axis, dim=1),
+                all_gather(resolved, mesh, data_axis, dim=1),
+                hits, repaired, all_reduce(rounds, mesh, data_axis, "max"))
+
+    return fn

@@ -175,8 +175,8 @@ def test_input_validation_and_unported_options():
         construct_bank(d, bucketing="sometimes", device="cpu")
     with pytest.raises(ValueError):
         construct_bank(d, method="loop", engine="xla", device="cpu")
-    with pytest.raises(NotImplementedError):
-        construct_bank(d, distribution="shard_map", device="cpu")
+    with pytest.raises(ValueError):
+        construct_bank(d, distribution="pmap", device="cpu")
     loop = construct_bank(d, method="auto", device="cpu")
     assert loop.stats.method == "loop" and loop.sfas[0] is not None
     batched = construct_bank(d, method="batched", device="cpu")

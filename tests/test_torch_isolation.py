@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.construction.cache", "repro_torch.obs.tracing",
             "repro_torch.obs.aggregate", "repro_torch.speculative.executor",
             "repro_torch.scanservice.jobs",
-            "repro_torch.scanservice.telemetry"} <= set(mods)
+            "repro_torch.scanservice.telemetry", "repro_torch.mesh",
+            "repro_torch.core.sfa", "repro_torch.core.sfa_jax"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

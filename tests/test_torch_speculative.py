@@ -257,8 +257,15 @@ def test_executor_cases_cover_repairs_and_fallback():
         for a, b in zip(got, want):
             assert np.array_equal(a.numpy(), np.asarray(b))
         assert bool(got[1].all()) == resolved
-    with pytest.raises(NotImplementedError, match="item 8"):
-        distributed_speculative_finals_fn(None)
+    # the mesh path on a one-rank CPU world: the same five outputs
+    from repro_torch.mesh import make_mesh
+
+    dist_fn = distributed_speculative_finals_fn(
+        make_mesh((1,), ("data",), device=CPU), n_chunks=8, max_rounds=2)
+    sp = torch.tensor([[2, 3]], dtype=torch.int32)
+    for a, b in zip(dist_fn(tables, sp, starts, corpus),
+                    speculative_bank_finals(tables, sp, starts, corpus, 8, 2)):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------
