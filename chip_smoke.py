@@ -78,9 +78,31 @@ Phases, in order (any failure raises and exits non-zero):
    scan the first 4,096 documents, their SFAs, hits and
    ``SpeculationStats`` equal to the local path's, and their launches
    counted in the ranks; the process group is destroyed at the end;
-9. with ``--profile`` only: trace one compile and one scan per budget, one
+9. the LM half's serving path, launch counts at 0 before it and read
+   after (it launches none of the seven kernels): qwen1.5-0.5B at its
+   published size (24 layers, d_model 1,024, vocab 151,936; 464 M f32
+   parameters from a seeded ``torch.Generator``, bf16 activations) serves
+   16 requests (prompts of 16-128 tokens, numpy seed 0) x 32 tokens
+   through the continuous-batching ``ServeEngine`` (4 slots, cache 256):
+   every request completes with tokens in range, prefill ms a request,
+   decode ms a step, generated tokens/s and peak memory printed; a decode
+   step against the forward at that position, layer by layer (each
+   layer fed the forward's input; within 3e-2), the logits' error end to
+   end printed; the same weights in f32: the engine's greedy tokens for 3
+   ragged prompts x 8 equal the argmax of full forwards; every other LM
+   architecture at its published width, depth cut to one pattern cycle
+   (whisper: one encoder and one decoder layer; phi3-vision with 256
+   prefix embeddings; MoE capacity raised so no assignment drops): a
+   B = 2 prefill (64 tokens, mamba2 256) and 4 decode steps against the
+   forward, each layer in bf16 within the reference's bound and the whole
+   model in f32 within 1e-3 (mamba2, whose f32 forward keeps bf16
+   operands in its quadratic form: 1e-2); then the reduced f32 models of
+   the CPU tests
+   on the card and on the CPU with the same weights, within 1e-4;
+10. with ``--profile`` only: trace one compile and one scan per budget, one
    ``stream`` of the single-pattern phase, the speculative phase's repeat
-   scans beside enumeration's and its stream with ``torch.profiler`` (the
+   scans beside enumeration's and its stream, and the LM phase's
+   qwen1.5-0.5B prefill and decode steps, with ``torch.profiler`` (the
    port's ``obs`` spans included) and print where the device time and the
    host time go.
 
@@ -244,11 +266,11 @@ def device_ms(torch, fn, us_per_call: float, reps: int = DEVICE_REPS
                        f"a spin of {cycles // 2} cycles")
 
 
-def timings(torch, fn) -> tuple:
+def timings(torch, fn, reps: int = DEVICE_REPS) -> tuple:
     """(device ms, host µs per call) of ``fn``: the best host run, and a
     spin sized from the slowest."""
     best, worst = host_us(torch, fn)
-    return device_ms(torch, fn, worst), best
+    return device_ms(torch, fn, worst, reps), best
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -553,11 +575,30 @@ def form_cases(torch, ops, ref, dev):
             shape=f"stacks {P}x{S}x{n}, idx {P}x{D}x{m}",
             run=lambda a=(stacks, idx): ops.compose_fold_rows(*a),
             plain=lambda a=(stacks, idx): ref.compose_fold_rows(*a),
-            library=None,      # advanced indexing and a gather per chunk
+            library=lambda a=(stacks, idx): gather_fold_rows(torch, *a),
+            # 2 m + 4 launches a call: fewer calls, so the queue behind
+            # the spin holds them all (it takes about 1,000 launches)
+            library_reps=30,
             nbytes=4 * (P * D * m + P * D * n + rows * n),
             ops=0,
         ))
     return cases
+
+
+def gather_fold_rows(torch, stacks, idx):
+    """The rows fold as ``torch.gather`` calls, one a chunk, on the
+    flattened stacks (no one PyTorch call folds m rows): chunk ``j``
+    gathers ``stacks[p, idx[p, d, j], state]`` at index ``row · n +
+    state``. A yardstick, never used by the port."""
+    P, S, n = stacks.shape
+    D, m = idx.shape[1:]
+    flat = stacks.reshape(P, S * n)
+    rows = idx.to(torch.int64) * n
+    out = torch.arange(n, device=stacks.device).expand(P, D, n)
+    for j in range(m):
+        out = torch.gather(flat, 1, (rows[:, :, j, None] + out)
+                           .reshape(P, D * n)).view(P, D, n)
+    return out
 
 
 def spec_cases(torch, ops, ref, dev):
@@ -678,7 +719,8 @@ def run_kernel_checks(torch, cases) -> list:
         if c["library"] is not None:
             check(torch.equal(c["library"](), want[0]),
                   f"{c['kernel']} {c['label']}: library yardstick differs")
-            lib_ms, lib_us = timings(torch, c["library"])
+            lib_ms, lib_us = timings(torch, c["library"],
+                                     c.get("library_reps", DEVICE_REPS))
         b_ms, b_by = bound(c["nbytes"], c["ops"])
         r = dict(kernel=c["kernel"], label=c["label"], shape=c["shape"],
                  max_abs_err=err, ms=ms, host_us=us, plain_ms=plain_ms,
@@ -1552,6 +1594,423 @@ def two_rank_path(torch, corpus, main) -> dict:
                 launches=launches)
 
 
+# --------------------------------------------------------------------------
+# Phase 9: the LM half's serving path
+# --------------------------------------------------------------------------
+
+#: qwen1.5-0.5B served through the engine: slots, cache length, requests,
+#: prompt lengths (numpy seed 0) and tokens a request.
+LM_ARCH, LM_SLOTS, LM_MAX_LEN = "qwen1p5_0p5b", 4, 256
+LM_REQUESTS, LM_PROMPT, LM_NEW = 16, (16, 128), 32
+#: The f32 greedy check: ragged prompts (numpy seed 1) through 2 slots.
+LM_GREEDY_PROMPTS, LM_GREEDY_NEW = (8, 13, 5), 8
+#: The other architectures: batch, prompt length (mamba2: one SSD chunk),
+#: decode steps held against the forward.
+LM_B, LM_S, LM_S_MAMBA2, LM_STEPS = 2, 64, 256, 4
+#: The reference tests' bounds: decode against forward (relative to the
+#: forward's largest value), bf16; the hybrid's exp-gated recurrence gets
+#: more. A one-cycle model's decode against its forward in f32 (measured
+#: up to 5e-5, recurrentgemma); mamba2's f32 forward still rounds the
+#: operands of its two intra-chunk contractions to bf16, as the reference
+#: does in every dtype (measured 8.1e-4). Card against CPU: f32 on both.
+LM_TOL, LM_TOL_HYBRID = 3e-2, 1e-1
+LM_F32_TOL, LM_F32_TOL_SSM, LM_CARD_CPU_TOL = 1e-3, 1e-2, 1e-4
+
+
+def lm_rel(want, got) -> float:
+    """max |got - want| / max |want|, in f32."""
+    want, got = want.float(), got.float().to(want.device)
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+def lm_inputs(torch, cfg, B, S, seed, dev):
+    """Tokens (B, S) in [1, vocab) and the stub modality inputs (whisper's
+    frames, phi3-vision's prefix embeddings) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["frames"] = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model))
+    if cfg.num_prefix_embeds:
+        extra["prefix_embeds"] = rng.normal(
+            size=(B, cfg.num_prefix_embeds, cfg.d_model))
+    return toks, {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                  for k, v in extra.items()}
+
+
+def decode_against_forward(torch, model, toks, extra, S, steps, dev) -> list:
+    """A prefill of ``toks[:, :S]`` and ``steps`` decode steps at per-slot
+    positions, each step's logits against the train-mode forward of
+    ``toks[:, :S + steps]`` at that position -> the relative errors."""
+    from repro_torch.sharding.rules import Dist
+
+    B = toks.shape[0]
+    with torch.inference_mode():
+        full, _, _ = model(None, toks[:, :S + steps], Dist(), mode="train",
+                           **extra)
+        cache = model.init_cache(B, S + steps + 4, device=dev)
+        model(None, toks[:, :S], Dist(), mode="prefill", cache=cache, **extra)
+        errs = []
+        for i in range(steps):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            dec, _, _ = model(None, toks[:, S + i:S + i + 1], Dist(),
+                              mode="decode", cache=cache, cache_pos=pos)
+            check(bool(torch.isfinite(dec).all()), "decode logits finite")
+            errs.append(lm_rel(full[:, S + i], dec[:, 0]))
+    return errs
+
+
+def decode_against_forward_by_layer(torch, model, toks, S, dev) -> list:
+    """A decoder-only model's decode step at position ``S`` against its
+    forward, one layer at a time, each layer fed the forward's input to
+    it: a prefill of its first ``S`` positions and a decode of position
+    ``S`` against the train-mode layer's output there -> the relative
+    errors, a layer each. A random-init model's deep stack amplifies
+    rounding (end to end, decode and forward part by more than the bound
+    at 24 layers, in this port and in the reference alike), so each layer
+    is held on the same input."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import tree_map
+    from repro_torch.models.layers import embed
+    from repro_torch.sharding.rules import Dist
+
+    cfg, params = model.cfg, model.params
+    B, L = toks.shape
+    cache = model.init_cache(B, L + 4, device=dev)
+    blocks = []                 # (key, block params, its slice of the cache)
+    for g in range(cfg.n_layers // len(cfg.layer_pattern)):
+        gp = tree_map(lambda t: t[g], params["blocks"])
+        gc = tree_map(lambda t: t[g], cache["blocks"])
+        blocks += [(k, gp[k], gc[k]) for k in sorted(
+            gp, key=lambda k: int(k.split("_")[0]))]
+    blocks += [(k, params["tail"][k], cache["tail"][k])
+               for k in sorted(params.get("tail", {}))]
+    positions = torch.arange(L, dtype=torch.int32, device=dev).expand(B, L)
+    pos_s = torch.full((B,), S, dtype=torch.int32, device=dev)
+    errs = []
+    with torch.inference_mode():
+        x = embed(params["embed"], toks, cfg, Dist().rules)
+        for key, bp, bc in blocks:
+            kind = key.split("_", 1)[1]
+            y, _, _ = T._block_forward(bp, x, cfg, Dist(), kind, mode="train",
+                                       positions=positions, cache=None,
+                                       cache_pos=None)
+            _, c, _ = T._block_forward(bp, x[:, :S], cfg, Dist(), kind,
+                                       mode="prefill",
+                                       positions=positions[:, :S], cache=bc,
+                                       cache_pos=None)
+            T.write_back(bc, c)
+            dec, _, _ = T._block_forward(bp, x[:, S:S + 1], cfg, Dist(), kind,
+                                         mode="decode",
+                                         positions=positions[:, S:S + 1],
+                                         cache=bc, cache_pos=pos_s)
+            errs.append(lm_rel(y[:, S], dec[:, 0]))
+            x = y
+    return errs
+
+
+def timed_calls(torch, fn, sink: list):
+    """``fn`` with each call's wall (synchronized on both sides) appended
+    to ``sink``."""
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def serve_qwen(torch, dev, card: str) -> tuple:
+    """qwen1.5-0.5B at its published size (bf16 activations, f32
+    parameters from a seeded generator) serving LM_REQUESTS requests
+    through the continuous-batching engine."""
+    from repro_torch.config import HOST_MESH, RunConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.rules import Dist
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, t_init = timed(torch, lambda: model.init(gen, device=dev))
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", LM_MAX_LEN,
+                                                 LM_SLOTS, "decode"),
+                    mesh=HOST_MESH)
+    eng = ServeEngine(model, run, Dist(), params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, temperature=0.0)
+    # warm-up: one short request (cuBLAS handles, allocator pools)
+    eng.submit(Request(prompt=np.arange(1, 17, dtype=np.int32),
+                       max_new_tokens=2, rid=-1))
+    eng.run_until_done()
+    eng.completed.clear()
+    prefill_s, decode_s = [], []
+    eng.prefill_one = timed_calls(torch, eng.prefill_one, prefill_s)
+    eng.decode = timed_calls(torch, eng.decode, decode_s)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    for i, L in enumerate(lens):
+        eng.submit(Request(prompt=rng.integers(1, cfg.vocab_size, int(L))
+                           .astype(np.int32), max_new_tokens=LM_NEW, rid=i))
+    done, wall = timed(torch, eng.run_until_done)
+    check(len(done) == LM_REQUESTS and all(
+        r.done and len(r.out_tokens) == LM_NEW
+        and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+        for r in done), "qwen: every request completes, tokens in range")
+    generated = sum(len(r.out_tokens) for r in done)
+    peak = torch.cuda.max_memory_allocated()
+    # one decode step against the full forward at that position: layer by
+    # layer (checked), and end to end (printed)
+    toks, _ = lm_inputs(torch, cfg, 1, 65, SEED, dev)
+    layer_errs = decode_against_forward_by_layer(torch, model, toks, 64, dev)
+    check(max(layer_errs) < LM_TOL,
+          f"qwen: a layer's decode against its forward {max(layer_errs):.3e}")
+    errs = decode_against_forward(torch, model, toks, {}, 64, 1, dev)
+    res = dict(params=model.n_params(), init_s=t_init, wall_s=wall,
+               prompt_lens=lens.tolist(), generated=generated,
+               prefill_ms=[1e3 * t for t in prefill_s],
+               decode_ms=[1e3 * t for t in decode_s],
+               tokens_per_s=generated / wall,
+               decode_tokens_per_s=(generated - LM_REQUESTS)
+               / sum(decode_s), peak_bytes=peak, decode_vs_forward=errs[0],
+               decode_vs_forward_by_layer=layer_errs)
+    print(f"[lm_serve] {LM_ARCH} full size ({res['params']:,} f32 "
+          f"parameters, bf16 activations, {LM_SLOTS} slots, max_len "
+          f"{LM_MAX_LEN}): {LM_REQUESTS} requests (prompts "
+          f"{LM_PROMPT[0]}-{LM_PROMPT[1]}) x {LM_NEW} tokens in "
+          f"{wall:.3f} s = {res['tokens_per_s']:.1f} generated tokens/s; "
+          f"prefill {np.mean(res['prefill_ms']):.2f} ms a request (median "
+          f"{np.median(res['prefill_ms']):.2f}); decode "
+          f"{np.mean(res['decode_ms']):.2f} ms a step (median "
+          f"{np.median(res['decode_ms']):.2f}, {len(decode_s)} steps) = "
+          f"{res['decode_tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; decode against forward: worst layer "
+          f"{max(layer_errs):.3e} (bound {LM_TOL}), logits end to end "
+          f"{errs[0]:.3e} (not checked) ({card})", flush=True)
+    return res, model, params
+
+
+def greedy_f32(torch, model, params, dev) -> dict:
+    """The same weights in f32: the engine's greedy tokens for ragged
+    prompts equal the argmax of full forwards (the reference's
+    invariant), with TF32 off."""
+    import dataclasses
+
+    from repro_torch.config import HOST_MESH, RunConfig, ShapeConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.rules import Dist
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 products must not run in TF32")
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    m32 = build_model(cfg)
+    m32.load(params)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, cfg.vocab_size, L).astype(np.int32)
+               for L in LM_GREEDY_PROMPTS]
+    want = []
+    with torch.inference_mode():
+        for p in prompts:
+            seq = list(p)
+            for _ in range(LM_GREEDY_NEW):
+                logits, _, _ = m32(None, torch.tensor([seq], device=dev),
+                                   Dist(), mode="train")
+                seq.append(int(torch.argmax(logits[0, -1])))
+            want.append(seq[len(p):])
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", 64, 2, "decode"),
+                    mesh=HOST_MESH)
+    eng = ServeEngine(m32, run, Dist(), m32.params, n_slots=2, max_len=64,
+                      temperature=0.0)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(prompt=p, max_new_tokens=LM_GREEDY_NEW, rid=i))
+    got = {r.rid: r.out_tokens for r in eng.run_until_done()}
+    check(all(got[i] == want[i] for i in range(len(prompts))),
+          f"f32 greedy tokens differ from the forward argmax: {got} {want}")
+    print(f"[lm_serve] {LM_ARCH} f32: the engine's greedy tokens for "
+          f"{len(prompts)} prompts ({LM_GREEDY_PROMPTS}) x {LM_GREEDY_NEW} "
+          f"equal the forward argmax", flush=True)
+    return dict(prompts=list(LM_GREEDY_PROMPTS), tokens=want)
+
+
+def full_width_archs(torch, dev, card: str) -> dict:
+    """Every other LM architecture at its published width, its depth cut
+    to one pattern cycle (whisper: one encoder and one decoder layer): a
+    prefill and LM_STEPS decode steps against the forward, each layer in
+    bf16 within the reference's bound (whisper's one decoder layer end to
+    end) and the whole model in f32 within LM_F32_TOL (LM_F32_TOL_SSM for
+    mamba2); the bf16 error end
+    to end is printed (a random-init stack amplifies bf16 rounding:
+    recurrentgemma's three layers part by up to 0.3). MoE layers get the
+    capacity that drops no assignment: a decode step (T = 2 tokens) and a
+    forward (T = 2 x 68) drop different assignments by design, so with
+    the published capacity the two differ wherever a drop falls; that
+    error is printed, not checked."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for arch in ARCH_IDS:
+        if arch in ("paper_sfa", LM_ARCH):
+            continue
+        cfg = get_config(arch)
+        cut = dict(n_layers=len(cfg.layer_pattern))
+        if cfg.is_encoder_decoder:
+            cut = dict(n_layers=1, n_encoder_layers=1)
+        published = dataclasses.replace(cfg, **cut)
+        if cfg.n_experts:
+            cut["moe_capacity_factor"] = cfg.n_experts / cfg.experts_per_token
+        cfg = dataclasses.replace(cfg, **cut)
+        S = LM_S_MAMBA2 if cfg.family == "ssm" else LM_S
+        # phi3-vision's 256 prefix embeddings lead the prompt
+        S += cfg.num_prefix_embeds
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        params = model.init(gen, device=dev)
+        toks, extra = lm_inputs(torch, cfg, LM_B, S + LM_STEPS, SEED, dev)
+        extra16 = {k: v.to(torch.bfloat16) for k, v in extra.items()}
+        errs = decode_against_forward(torch, model, toks, extra16, S,
+                                      LM_STEPS, dev)
+        by_layer = (errs if cfg.is_encoder_decoder else
+                    decode_against_forward_by_layer(torch, model, toks, S,
+                                                    dev))
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        m32.load(params)
+        errs32 = decode_against_forward(torch, m32, toks, extra, S, LM_STEPS,
+                                        dev)
+        del m32
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tol = LM_TOL_HYBRID if cfg.family == "hybrid" else LM_TOL
+        tol32 = LM_F32_TOL_SSM if cfg.family == "ssm" else LM_F32_TOL
+        check(max(by_layer) < tol, f"{arch}: a layer's decode against its "
+                                   f"forward {max(by_layer):.3e} (bound {tol})")
+        check(max(errs32) < tol32, f"{arch}: f32 decode against forward "
+                                   f"{max(errs32):.3e} (bound {tol32})")
+        note = ""
+        if cfg.n_experts:
+            pub = build_model(published)
+            pub.load(params)
+            pub_errs = decode_against_forward(torch, pub, toks, extra16, S,
+                                              LM_STEPS, dev)
+            note = (f"; published capacity {published.moe_capacity_factor}"
+                    f": {max(pub_errs):.3e} (not checked)")
+            del pub
+        r = dict(cut=cut, S=S, params=model.n_params(), wall_s=wall,
+                 by_layer=by_layer, errs=errs, errs_f32=errs32,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        out[arch] = r
+        print(f"[lm_serve] {arch} full width, cut {cut}: B={LM_B} prefill "
+              f"S={S} + {LM_STEPS} decode steps against the forward: bf16 "
+              f"worst layer {max(by_layer):.3e} (bound {tol}), f32 end to end "
+              f"{max(errs32):.3e} (bound {tol32}), bf16 end to end "
+              f"{max(errs):.3e}{note}; {r['params']:,} parameters, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, {wall:.2f} s ({card})",
+              flush=True)
+        del model, params, toks, extra, extra16
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_reduced_cfg(arch: str):
+    """The reference tests' reduced configs, in f32."""
+    import dataclasses
+
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "mamba2_370m":
+        cfg = reduced(cfg, ssm_heads=4, ssm_head_dim=32, d_model=64,
+                      ssm_state=16)
+    elif arch == "recurrentgemma_9b":
+        cfg = reduced(cfg, n_layers=5, rglru_width=64, head_dim=16)
+    else:
+        cfg = reduced(cfg)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def card_against_cpu(torch, dev) -> dict:
+    """The reduced f32 models with the same weights on the card and on the
+    CPU: train logits, the prefill cache and a decode step agree."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.base import leaves_with_paths, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import Dist
+
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in ARCH_IDS:
+        if arch == "paper_sfa":
+            continue
+        cfg = lm_reduced_cfg(arch)
+        B, S = 2, (16 if cfg.family == "ssm" else 12)
+        host = build_model(cfg)
+        params = host.init(torch.Generator().manual_seed(SEED), device=cpu)
+        card = build_model(cfg)
+        card.load(tree_map(lambda t: t.to(dev), params))
+        res = []
+        for m, d in ((card, dev), (host, cpu)):
+            toks, extra = lm_inputs(torch, cfg, B, S + 1, SEED, d)
+            with torch.inference_mode():
+                full, _, _ = m(None, toks, Dist(), mode="train", **extra)
+                cache = m.init_cache(B, S + 4, device=d)
+                m(None, toks[:, :S], Dist(), mode="prefill", cache=cache,
+                  **extra)
+                leaves = [t.clone() for _, t in leaves_with_paths(cache)]
+                dec, _, _ = m(None, toks[:, S:], Dist(), mode="decode",
+                              cache=cache, cache_pos=torch.tensor(S, device=d))
+            res.append((full, leaves, dec))
+        errs = dict(forward=lm_rel(res[1][0], res[0][0]),
+                    cache=max(lm_rel(b, a) for a, b in zip(res[0][1],
+                                                           res[1][1])),
+                    decode=lm_rel(res[1][2], res[0][2]))
+        check(max(errs.values()) < LM_CARD_CPU_TOL,
+              f"{arch}: card against CPU {errs}")
+        out[arch] = errs
+    worst = {k: max(e[k] for e in out.values()) for k in
+             ("forward", "cache", "decode")}
+    print(f"[lm_serve] card against CPU, {len(out)} reduced f32 models: "
+          f"worst relative error forward {worst['forward']:.2e}, prefill "
+          f"cache {worst['cache']:.2e}, decode {worst['decode']:.2e} "
+          f"(bound {LM_CARD_CPU_TOL})", flush=True)
+    return out
+
+
+def lm_serve_path(torch, ops, dev, card: str) -> dict:
+    """Phase 9: the LM serving path. Launch counts at 0 before its runs,
+    read after: the LM half launches none of the SFA kernels."""
+    import gc
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    serve, model, params = serve_qwen(torch, dev, card)
+    greedy = greedy_f32(torch, model, params, dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    archs = full_width_archs(torch, dev, card)
+    launches = {**ops.launches, **ops.form_launches}
+    check(not any(launches.values()),
+          f"the LM phase launched SFA kernels: {launches}")
+    host = card_against_cpu(torch, dev)
+    wall = time.perf_counter() - t0
+    print(f"[lm_serve] phase wall {wall:.1f} s; kernel launches {launches}",
+          flush=True)
+    return dict(serve=serve, greedy_f32=greedy, archs=archs,
+                card_vs_cpu=host, wall_s=wall, launches=launches)
+
+
 def trace(torch, label: str, fn, n_top: int = 12) -> dict:
     """One traced run of ``fn`` under ``torch.profiler``: its wall, the
     device's busy time, device time by kernel and host time by operation
@@ -1613,6 +2072,51 @@ def profile_main_path(torch, corpus) -> dict:
                           ("scan", lambda: sc.scan(corpus))):
             out[f"{name} {phase}"] = trace(torch, f"{name} {phase}", fn)
     return out
+
+
+def profile_lm_decode(torch, dev) -> dict:
+    """Device and host breakdown of qwen1.5-0.5B's serving steps (the
+    lm_serve phase's model and engine): one 128-token prefill and 5
+    decode steps over 4 live slots."""
+    from repro_torch.config import HOST_MESH, RunConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.rules import Dist
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", LM_MAX_LEN,
+                                                 LM_SLOTS, "decode"),
+                    mesh=HOST_MESH)
+    eng = ServeEngine(model, run, Dist(), params, n_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, temperature=0.0)
+    rng = np.random.default_rng(SEED)
+    for i in range(LM_SLOTS):
+        eng.submit(Request(prompt=rng.integers(1, cfg.vocab_size, 64)
+                           .astype(np.int32), max_new_tokens=LM_NEW, rid=i))
+    eng._admit()
+    for _ in range(3):              # warm
+        eng.step()
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 128))
+                            .astype(np.int32)).to(dev)
+
+    def prefill():
+        for leaf in tree_leaves(eng._single_cache):
+            leaf.zero_()
+        with torch.inference_mode():
+            eng.prefill_one(params, eng._single_cache, {"tokens": toks})
+
+    prefill()
+    return {
+        "lm prefill": trace(torch, "lm_serve: one 128-token prefill", prefill),
+        "lm decode": trace(torch, f"lm_serve: 5 decode steps, {LM_SLOTS} "
+                                  f"slots", lambda: [eng.step()
+                                                     for _ in range(5)]),
+    }
 
 
 def profile_speculative(torch, corpus, seq) -> dict:
@@ -1710,6 +2214,7 @@ def main(argv=None) -> int:
     dist_res = distributed_path(torch, ops, corpus, seq, main_res,
                                 single_res, spec_res, service_res)
     two_res = two_rank_path(torch, corpus, main_res)
+    lm_res = lm_serve_path(torch, ops, dev, card)
     prof_res = None
     if args.profile:
         from repro_torch import obs
@@ -1717,6 +2222,7 @@ def main(argv=None) -> int:
         obs.configure(profiler_annotations=True)   # spans in the traces
         prof_res = profile_main_path(torch, corpus)
         prof_res.update(profile_speculative(torch, corpus, seq))
+        prof_res.update(profile_lm_decode(torch, dev))
 
     csrc, tpu = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     sources = {
@@ -1742,7 +2248,8 @@ def main(argv=None) -> int:
                     "speculative": spec_res["launches"][name],
                     "service": service_res["launches"][name],
                     "distributed": dist_res["launches"][name],
-                    "distributed, 2 ranks": two_res["launches"][name]}
+                    "distributed, 2 ranks": two_res["launches"][name],
+                    "lm_serve": lm_res["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -1775,6 +2282,7 @@ def main(argv=None) -> int:
             service=service_res,
             distributed=dist_res,
             distributed_2_ranks=two_res,
+            lm_serve=lm_res,
             profile=prof_res,
         )
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

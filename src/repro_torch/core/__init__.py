@@ -31,12 +31,14 @@ from .matching import (
 )
 from .monoid import (
     Monoid,
+    affine_monoid,
     exclusive_scan,
     function_monoid,
     reduce,
     scan,
     shard_exclusive_scan,
     shard_reduce,
+    softmax_monoid,
 )
 from .multipattern import PatternBank, bucket_by_size, census_sequential
 from .prosite import (

@@ -173,6 +173,69 @@ def test_function_monoid_fold_matches_reference(seed):
                           np.asarray(jmonoid.reduce(JFN, jnp.asarray(xs[0]))))
 
 
+def _lm_elements(name: str, rng, L: int = 11):
+    """A stack of L elements of the affine or softmax monoid, along axis 1
+    (a leading batch axis of 2), f32, as numpy arrays."""
+    if name == "affine":
+        # mamba2's shape: a (B, L, H, 1, 1) broadcasts against b (B, L, H, N, P)
+        return (rng.uniform(0.1, 1.0, (2, L, 3, 1, 1)).astype(np.float32),
+                rng.normal(size=(2, L, 3, 4, 5)).astype(np.float32))
+    # (m, s) (B, L, 6, 1) broadcast against o (B, L, 6, 4)
+    return (rng.normal(size=(2, L, 6, 1)).astype(np.float32),
+            rng.uniform(0.1, 2.0, (2, L, 6, 1)).astype(np.float32),
+            rng.normal(size=(2, L, 6, 4)).astype(np.float32))
+
+
+#: The LM monoids' scans group their combines as Hillis–Steele does, the
+#: reference's as ``lax.associative_scan`` does: equal in exact arithmetic,
+#: within f32 rounding here (measured below 1e-6 relative).
+LM_MONOID_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("name", ["affine", "softmax"])
+@pytest.mark.parametrize("how", ["scan", "scan_reverse", "exclusive_scan",
+                                 "reduce"])
+def test_lm_monoids_match_reference(name, how):
+    rng = np.random.default_rng(len(name) + len(how))
+    xs = _lm_elements(name, rng)
+    M_ = getattr(monoid, f"{name}_monoid")()
+    JM = getattr(jmonoid, f"{name}_monoid")()
+    fn, kw = how.removesuffix("_reverse"), (
+        {"reverse": True} if how.endswith("_reverse") else {})
+    got = getattr(monoid, fn)(M_, tuple(torch.from_numpy(a) for a in xs),
+                              axis=1, **kw)
+    want = getattr(jmonoid, fn)(JM, tuple(jnp.asarray(a) for a in xs),
+                                axis=1, **kw)
+    assert isinstance(got, tuple) and len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        finite = np.isfinite(w)
+        assert np.array_equal(finite, torch.isfinite(g).numpy())
+        np.testing.assert_allclose(g.numpy()[finite], w[finite],
+                                   rtol=LM_MONOID_RTOL, atol=1e-6)
+    if how == "exclusive_scan":            # element 0 is the identity
+        ident = M_.identity(tuple(torch.from_numpy(a[:, :1]) for a in xs))
+        for g, i in zip(got, ident):
+            assert torch.equal(g[:, :1], i)
+
+
+def test_softmax_monoid_computes_softmax():
+    """Chunked (m, s, o) combining == the direct softmax-weighted sum: 4
+    chunks of 8 scores, each chunk's partial softmax one element."""
+    rng = np.random.default_rng(5)
+    sc = torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))
+    vc = torch.from_numpy(rng.normal(size=(4, 8, 3)).astype(np.float32))
+    m = sc.amax(-1, keepdim=True)                               # (4, 1)
+    p = torch.exp(sc - m)
+    parts = (m, p.sum(-1, keepdim=True), (p[..., None] * vc).sum(-2))
+    mt, st, ot = monoid.reduce(monoid.softmax_monoid(), parts, axis=0)
+    want = torch.softmax(sc.reshape(-1), 0) @ vc.reshape(-1, 3)
+    np.testing.assert_allclose((ot / st).numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert float(mt) == float(sc.max())
+
+
 @pytest.mark.parametrize("n,k,L,seed", [(3, 4, 9, 0), (12, 20, 16, 1)])
 def test_chunk_primitives_match_reference(n, k, L, seed):
     rng = np.random.default_rng(seed)

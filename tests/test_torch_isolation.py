@@ -34,7 +34,18 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs.aggregate", "repro_torch.speculative.executor",
             "repro_torch.scanservice.jobs",
             "repro_torch.scanservice.telemetry", "repro_torch.mesh",
-            "repro_torch.core.sfa", "repro_torch.core.sfa_jax"} <= set(mods)
+            "repro_torch.core.sfa", "repro_torch.core.sfa_jax",
+            "repro_torch.config", "repro_torch.sharding.rules",
+            "repro_torch.serve.engine", "repro_torch.serve.steps",
+            "repro_torch.launch.serve"} <= set(mods)
+    # the LM half: every model module and every architecture's config
+    assert {f"repro_torch.models.{m}" for m in (
+        "base", "layers", "attention", "moe", "ssm", "rglru", "transformer",
+        "whisper", "model")} <= set(mods)
+    assert {f"repro_torch.configs.{a}" for a in (
+        "phi3_vision_4p2b", "mamba2_370m", "grok1_314b", "granite_moe_1b",
+        "h2o_danube_1p8b", "qwen3_8b", "qwen1p5_0p5b", "yi_34b",
+        "whisper_base", "recurrentgemma_9b", "paper_sfa")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
