@@ -48,7 +48,7 @@ def main(argv=None) -> None:
     run = RunConfig(model=cfg, shape=ShapeConfig("serve", 128, args.slots, "decode"),
                     mesh=HOST_MESH)
     engine = ServeEngine(model, run, Dist(), params, n_slots=args.slots,
-                         max_len=128, temperature=0.7, generator=gen)
+                         max_len=128, temperature=0.7)
 
     rng = np.random.default_rng(0)
     for i in range(args.requests):

@@ -145,7 +145,7 @@ def write_back(dst, src) -> None:
 # --------------------------------------------------------------------------
 
 
-def _block_forward(bparams, x, cfg, dist: Dist, kind: str, *, mode, positions,
+def block_forward(bparams, x, cfg, dist: Dist, kind: str, *, mode, positions,
                    cache, cache_pos):
     h = rmsnorm(x, bparams["pre_norm"], cfg.norm_eps)
     new_cache = None
@@ -178,21 +178,21 @@ def _block_forward(bparams, x, cfg, dist: Dist, kind: str, *, mode, positions,
     return x, new_cache, aux
 
 
-def _group_forward(gparams, x, cfg, dist, *, mode, positions, cache, cache_pos):
-    """The blocks of one group in pattern order; each block's new cache is
-    written into ``cache`` (views of the stacked cache) in place."""
-    aux_total = 0.0
-    for key in sorted(gparams.keys(), key=lambda s: int(s.split("_")[0])):
-        kind = key.split("_", 1)[1]
-        bc = cache.get(key) if cache else None
-        x, nc, aux = _block_forward(
-            gparams[key], x, cfg, dist, kind,
-            mode=mode, positions=positions, cache=bc, cache_pos=cache_pos,
-        )
-        aux_total = aux_total + aux
-        if nc is not None:
-            write_back(bc, nc)
-    return x, aux_total
+def blocks_in_run_order(params: dict, cfg: ModelConfig, cache: dict | None = None):
+    """The model's blocks in the order ``lm_forward`` runs them: each
+    group's blocks in pattern order, then the tail blocks. Yields ``(kind,
+    block params, block cache | None)``; a block cache is a view of the
+    stacked cache, so writing into it updates ``cache``."""
+    n_groups = cfg.n_layers // len(pattern_of(cfg))
+    parts = [(tree_map(lambda t, g=g: t[g], params["blocks"]),
+              tree_map(lambda t, g=g: t[g], cache["blocks"]) if cache else None)
+             for g in range(n_groups)]
+    if "tail" in params:
+        parts.append((params["tail"], cache.get("tail") if cache else None))
+    for bparams, bcache in parts:
+        for key in sorted(bparams, key=lambda s: int(s.split("_")[0])):
+            yield (key.split("_", 1)[1], bparams[key],
+                   bcache.get(key) if bcache else None)
 
 
 def lm_forward(
@@ -226,27 +226,15 @@ def lm_forward(
         positions = torch.broadcast_to(
             torch.arange(S, dtype=torch.int32, device=dev), (B, S))
 
-    p = pattern_of(cfg)
-    n_groups = cfg.n_layers // len(p)
     aux_total = 0.0
-
-    for g in range(n_groups):
-        gparams = tree_map(lambda t: t[g], params["blocks"])
-        gcache = (tree_map(lambda t: t[g], cache["blocks"])
-                  if cache is not None else None)
-        x, aux = _group_forward(
-            gparams, x, cfg, dist,
-            mode=mode, positions=positions, cache=gcache, cache_pos=cache_pos,
+    for kind, bparams, bcache in blocks_in_run_order(params, cfg, cache):
+        x, new_cache, aux = block_forward(
+            bparams, x, cfg, dist, kind,
+            mode=mode, positions=positions, cache=bcache, cache_pos=cache_pos,
         )
         aux_total = aux_total + aux
-
-    if "tail" in params:
-        tcache = cache.get("tail") if cache else None
-        x, aux = _group_forward(
-            params["tail"], x, cfg, dist,
-            mode=mode, positions=positions, cache=tcache, cache_pos=cache_pos,
-        )
-        aux_total = aux_total + aux
+        if new_cache is not None:
+            write_back(bcache, new_cache)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:

@@ -8,7 +8,8 @@ cache (one contiguous region per slot). Decode advances all live slots one
 token per step, each at its own position.
 
 Everything runs under ``torch.inference_mode()`` on the parameters' device;
-sampling draws from a ``torch.Generator`` there (seed 0 unless one is given).
+sampling draws from the engine's own ``torch.Generator`` there, seeded
+0 (the reference seeds ``PRNGKey(0)``).
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ class Request:
 class ServeEngine:
     def __init__(self, model: Model, run: RunConfig, dist: Dist, params,
                  *, n_slots: int = 4, max_len: int = 256, eos_id: int = -1,
-                 temperature: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 temperature: float = 0.0):
         self.model = model
         self.run = run
         self.dist = dist
@@ -57,10 +57,8 @@ class ServeEngine:
         self.slot_pos = np.zeros(n_slots, dtype=np.int64)   # next position
         self.slot_last = np.zeros(n_slots, dtype=np.int32)  # last sampled token
         self.queue: deque = deque()
-        self._gen = generator
-        if generator is None:
-            self._gen = torch.Generator(device=self.device)
-            self._gen.manual_seed(0)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(0)
         self.completed: list = []
         self._single_cache = model.init_cache(1, max_len, device=self.device)
 
