@@ -16,7 +16,13 @@ Phases, in order (any failure raises and exits non-zero):
    case names and its share of lookups on staged rows printed; the
    speculative scan's two launches (the chunk walk from explicit start
    states, ``spec_resolve`` under a profile that hits every chunk and one
-   that misses every chunk with 2 repairs a lane) at its shape; time each
+   that misses every chunk with 2 repairs a lane) at its shape, and the
+   chained ``spec_resolve`` of a stream piece (32 blocks of 8 x 256
+   symbols: one pattern under a profile that hits and one that misses with
+   fallback lanes, 24 patterns under a random profile); count the
+   shared-memory wavefronts of the walk from explicit starts, the
+   enumeration walk and locate's walk under their own lane layouts, and the
+   least time the card takes to serve them (its SM clock printed); time each
    kernel, its plain version, and (where one exists) one PyTorch call that
    computes the same function — for the kernel and that call both the
    device time per call and the host's time per call of the wrapper;
@@ -51,10 +57,12 @@ Phases, in order (any failure raises and exits non-zero):
    enumeration, its ``SpeculationStats`` against the same executor through
    the plain versions; the 702-state pattern alone; an explicit profile of
    states no chunk is entered in, 2 repairs a lane; a 64-piece stream of
-   the long sequence against its scan and the whole-sequence walk; the
-   walls and stats are printed, and the walk from explicit starts
-   (counted apart, ``ops.form_launches``) and ``spec_resolve`` must have
-   launched;
+   the long sequence against its scan and the whole-sequence walk, its
+   stats against the same stream through the plain versions on the CPU,
+   exactly one chained ``spec_resolve`` launch a piece, and its wall
+   printed beside the SFA bank's stream of phase 5; the walls and stats
+   are printed, and the walk from explicit starts (counted apart,
+   ``ops.form_launches``) and ``spec_resolve`` must have launched;
 7. the scan service, launch counts as in 6: ``Scanner.service`` with an
    artifact store coalescing four overlapping requests of 4,096 docs, each
    answer equal to a direct scan; a compile under the shared SFA cache
@@ -141,6 +149,9 @@ SEQ_LEN = 1 << 22                    # residues, uniform, numpy seed 0
 LOCATE_CHUNKS = 4096                 # chunks of 1,024 residues
 WINDOW, STRIDE = 384, 48             # census_windows: 87,376 windows
 STREAM_PIECES = 64
+#: Blocks of a stream piece: n_chunks x block_len = 8 x 256 symbols each
+#: (``ChunkPolicy``'s defaults).
+STREAM_DOCS = SEQ_LEN // STREAM_PIECES // (N_CHUNKS * 256)
 ORACLE_LEN = 1 << 18                 # prefix held against the match oracle
 CLOSE_TILE = 4096                    # construct_sfa_vectorized's tile
 
@@ -285,7 +296,7 @@ def bound(nbytes: float, ops: float) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def kernel_cases(torch, ops, ref, dev):
+def kernel_cases(torch, ops, ref, dev, clock_mhz: float):
     rng = np.random.default_rng(SEED)
 
     def i32(a):
@@ -377,7 +388,7 @@ def kernel_cases(torch, ops, ref, dev):
             ops=0,
         ))
 
-    return cases + match_cases(torch, ops, ref, dev, ids)
+    return cases + match_cases(torch, ops, ref, dev, ids, clock_mhz)
 
 
 def staged_share(torch, tables, chunks, n_starts: int, rows: int,
@@ -430,8 +441,9 @@ def walk_case(torch, ops, kernel, label, branch, tables, ch, ns, run,
     )
 
 
-def match_cases(torch, ops, ref, dev, ids):
-    """The two chunk walks at the main path's shapes, on random tables."""
+def match_cases(torch, ops, ref, dev, ids, clock_mhz: float):
+    """The two chunk walks at the main path's shapes, on random tables,
+    with the shared-memory floor of the locate and enumeration walks."""
     cases = []
 
     # match_chunks: locate's first pass (PS00010's 87-state table, 4,096
@@ -446,6 +458,9 @@ def match_cases(torch, ops, ref, dev, ids):
             torch, ops, "match_chunks", label, branch, table[None], ch, n,
             lambda a=(table, ch): ops.match_chunks(*a),
             lambda a=(table, ch): ref.match_chunks(*a)))
+        if label == "locate":
+            cases[-1].update(smem_floor(torch, ops, label, table[None], ch,
+                                        n, clock_mhz))
 
     # match_bank_chunks at the scan's shapes (65,536 docs x 8 chunks of 48
     # symbols), on random tables: the SFA group (18 deltas of <= 272 rows,
@@ -469,6 +484,9 @@ def match_cases(torch, ops, ref, dev, ids):
             torch, ops, "match_bank_chunks", label, branch, tables, ch, ns,
             lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
             lambda a=(tables, ch, ns): ref.match_bank_chunks(*a)))
+        if label == "enumeration, budget 512":
+            cases[-1].update(smem_floor(torch, ops, label, tables, ch, ns,
+                                        clock_mhz))
     return cases
 
 
@@ -601,12 +619,18 @@ def gather_fold_rows(torch, stacks, idx):
     return out
 
 
-def spec_cases(torch, ops, ref, dev):
+def spec_cases(torch, ops, ref, dev, clock_mhz: float):
     """The speculative scan's two launches at its shape (24 patterns of 702
     states, m = 8, 65,536 docs x 8 chunks of 48): the m-lane walk from
-    explicit start states, then ``spec_resolve`` on its exits under a
-    profile that hits every chunk and one that misses every chunk with 2
-    repairs a lane (so lanes stay unresolved); and a ragged edge of each."""
+    explicit start states (with its shared-memory floor), then
+    ``spec_resolve`` on its exits under a profile that hits every chunk and
+    one that misses every chunk with 2 repairs a lane (so lanes stay
+    unresolved); and a ragged edge of each. Then the chained form at a
+    stream piece's shape (32 blocks of 8 chunks of 256 symbols): one
+    pattern under a profile that hits and one that misses with fallback
+    lanes (1 repair a block), and 24 patterns under a random profile."""
+    from repro_torch.engine import ChunkPolicy
+
     rng = np.random.default_rng(SEED + 2)
 
     def ids(lo, hi, shape):
@@ -627,55 +651,172 @@ def spec_cases(torch, ops, ref, dev):
             lambda a=(tables, ch, m, starts): ref.match_bank_chunks(*a),
             starts=starts)
         case["nbytes"] += 4 * P * m          # the start states
+        if P > 3:
+            case.update(smem_floor(torch, ops, label, tables, ch, m,
+                                   clock_mhz, starts))
         cases.append(case)
 
     # spec_resolve: "hit all" walks tables on states 0 .. m-1 only, all of
     # them speculated; "miss all" never enters the m speculated states and
-    # repairs at most 2 chunks a lane. The bound counts what the data
-    # needs (``resolve_work``).
-    for label, (P, n, D, ch, rounds, hit) in (
-            ("hit all, 24x702", (24, SPEC_STATES, DOCS, chunks, 8, True)),
+    # repairs at most 2 chunks a lane (1 a block in the chained miss, which
+    # then walks each block's other 7 chunks as a fallback lane); "random"
+    # speculates 8 random states of random tables. The bound counts what
+    # the data needs (``resolve_work``).
+    pol = ChunkPolicy()
+    stream = ids(0, K, (STREAM_DOCS * pol.n_chunks, pol.block_len))
+    for label, (P, n, D, ch, rounds, profile, chained) in (
+            ("hit all, 24x702", (24, SPEC_STATES, DOCS, chunks, 8, "hit",
+                                 False)),
             ("miss all, 2 rounds, 24x702",
-             (24, SPEC_STATES, DOCS, chunks, 2, False)),
+             (24, SPEC_STATES, DOCS, chunks, 2, "miss", False)),
             ("ragged, miss all, 1 round", (3, 13, 143, ids(0, K, (1001, 7)),
-                                           1, False))):
+                                           1, "miss", False)),
+            ("chain, hit all, 1x702", (1, SPEC_STATES, STREAM_DOCS, stream,
+                                       8, "hit", True)),
+            ("chain, miss all, 1 round, 1x702",
+             (1, SPEC_STATES, STREAM_DOCS, stream, 1, "miss", True)),
+            ("chain, random, 24x702", (24, SPEC_STATES, STREAM_DOCS, stream,
+                                       8, "random", True))):
         C_ = ch.shape[0] // D
-        if hit:
+        if profile == "hit":
             tables, spec = ids(0, m, (P, n, K)), torch.arange(
                 m, dtype=torch.int32, device=dev).repeat(P, 1)
             starts = ids(0, m, (P,))
-        else:
+        elif profile == "miss":
             tables = ids(0, n - m, (P, n, K))
             spec = torch.arange(n - m, n, dtype=torch.int32,
                                 device=dev).repeat(P, 1)
             starts = ids(0, n - m, (P,))
+        else:
+            tables, spec, starts = (ids(0, n, (P, n, K)), ids(0, n, (P, m)),
+                                    ids(0, n, (P,)))
         exits = ops.match_bank_chunks(tables, ch, m, spec)
         args = (tables, spec, starts, exits, ch, C_, rounds)
-        nbytes, n_ops = resolve_work(torch, ref, args)
+        run = ops.spec_resolve_chain if chained else ops.spec_resolve
+        plain = ref.spec_resolve_chain if chained else ref.spec_resolve
+        plan = ops.resolve_plan_of(tables, spec, C_, chained)
+        check(plan.branch == "smem", f"spec_resolve {label}: plan branch "
+                                     f"{plan.branch!r}, expected 'smem'")
+        print(f"[plan] {'spec_resolve':18s} {label:40s} {plan.branch:9s} "
+              f"R = {plan.rows}/{n} rows, {plan.group} chunks of exits a "
+              f"group, slabs of {plan.slab} words a warp, {plan.smem} B "
+              f"shared", flush=True)
+        nbytes, n_ops = resolve_work(torch, ref, args, chained)
         cases.append(dict(
             kernel="spec_resolve", label=label,
             shape=f"tables {P}x{n}x{K}, {D} docs x {C_} chunks of "
                   f"{ch.shape[1]}, m {m}, max_rounds {rounds}",
-            run=lambda a=args: ops.spec_resolve(*a),
-            plain=lambda a=args: ref.spec_resolve(*a),
+            run=lambda a=args, f=run: f(*a),
+            plain=lambda a=args, f=plain: f(*a),
             library=None, nbytes=nbytes, ops=n_ops))
     return cases
 
 
-def resolve_work(torch, ref, args) -> tuple:
+def resolve_work(torch, ref, args, chained: bool = False) -> tuple:
     """(bytes, int32 ops) ``spec_resolve`` needs on these inputs, counted
     from its plain version's outputs: each lane reads its start, one
     4-byte exit a hit and a chunk's symbols a repair, and writes its final
-    state and flag; a walked chunk costs m compares, a repaired one an
-    address and a load a step."""
+    state (and flag); a walked chunk costs m compares, a repaired one an
+    address and a load a step. The chained form writes one state a pattern
+    and walks every chunk of a doc after its unrepaired miss too: every
+    chunk is a hit, a repair or such a fallback chunk."""
     tables, spec, starts, exits, ch, C, rounds = args
     P, m = spec.shape
     D, Lc = ch.shape[0] // C, ch.shape[1]
-    _, resolved, hits, repaired, _ = ref.spec_resolve(*args)
-    hits, repaired = int(hits), int(repaired)
-    stopped = int((~resolved).sum())
-    nbytes = 4 * (P * m + P + hits + repaired * Lc) + 5 * P * D + 24
-    return nbytes, (hits + repaired + stopped) * m + 2 * repaired * Lc
+    if chained:
+        _, totals = ref.spec_resolve_chain(*args)
+        hits, repaired, _, stopped = totals.tolist()
+        walked = P * D * C - hits
+        nbytes = 4 * (P * m + P + hits + walked * Lc) + 4 * P + 32
+    else:
+        _, resolved, hits, repaired, _ = ref.spec_resolve(*args)
+        hits, repaired = int(hits), int(repaired)
+        stopped = int((~resolved).sum())
+        walked = repaired
+        nbytes = 4 * (P * m + P + hits + repaired * Lc) + 5 * P * D + 24
+    return nbytes, (hits + repaired + stopped) * m + 2 * walked * Lc
+
+
+def smem_floor(torch, ops, label, tables, chunks, n_starts: int,
+               clock_mhz: float, starts=None, sample: int = 8192) -> dict:
+    """The shared-memory wavefronts a chunk walk needs under its own lane
+    layout (``ops.match_plan``, ``csrc/match.cuh``), and the least time the
+    card's shared-memory pipes take to serve them (one wavefront a cycle an
+    SM, all SMs at ``clock_mhz``). Each chain step of a warp is one shared
+    load of its 32 lanes' table words (dead chains walk from state 0 too);
+    its wavefronts are the most distinct 4-byte words any of the 32 banks
+    holds among them (one word read by several lanes is one broadcast).
+    Counted on ``sample`` warp tasks spread evenly over the launch (all of
+    them where there are fewer), from the plain walk's states on the same
+    inputs, and scaled to every task; each slab-word read (one a word of
+    steps and chain, one for all chains start-major) adds one wavefront;
+    staging stores are not counted."""
+    plan = ops.match_plan_of(tables, chunks, n_starts,
+                             from_starts=starts is not None)
+    P, n, k = tables.shape
+    B, L = chunks.shape
+    dev = tables.device
+    J, cw, qw, groups = (plan.chains, plan.chunks_per_warp,
+                         plan.lanes_per_chunk, plan.groups)
+    tasks = -(-B // cw) * groups
+    T = min(tasks, sample)
+    task = torch.arange(T, device=dev) * tasks // T
+    b0 = (task // groups * cw)[:, None, None]
+    g = (task % groups)[:, None, None]
+    i = (torch.arange(32, device=dev)[None, :]
+         + 32 * torch.arange(J, device=dev)[:, None])[None]       # (1, J, 32)
+    cj = torch.zeros_like(i) if plan.one_chunk else i // qw
+    q = g * qw + (i if plan.one_chunk else i % qw)                # (T, J, 32)
+    live = (cj < (B - b0).clamp(max=cw)) & (q < n_starts)
+    chunk = b0 + torch.where(live, cj, 0)
+    pr = torch.arange(P, device=dev)[:, None, None, None]
+    if starts is None:
+        s = torch.where(live, q, 0).expand(P, T, J, 32)
+    else:
+        s = torch.where(live[None], starts.to(torch.int64)[
+            pr, q.clamp(max=n_starts - 1)[None]], 0)
+    row = k | 1
+    syms = chunks.to(torch.int64)
+    tabs = tables.to(torch.int64)
+    wavefronts = 0
+    for t in range(L):
+        sym = syms[chunk, t].expand(P, T, J, 32)
+        addr = s * row + sym
+        near = s < plan.rows
+        key = torch.where(near, (addr % 32) << 24 | addr, -1)
+        ks = key.sort(dim=-1).values
+        first = torch.ones_like(ks, dtype=torch.bool)
+        first[..., 1:] = ks[..., 1:] != ks[..., :-1]
+        first &= ks >= 0
+        per_bank = torch.zeros_like(ks).scatter_add_(
+            -1, (ks >> 24).clamp(min=0), first.to(torch.int64))
+        wavefronts += int(per_bank.max(-1).values.sum())
+        s = tabs[pr, s, sym]
+    steps = P * tasks * J * L                 # warp-wide table loads
+    per_step = wavefronts / (P * T * J * L)
+    spw = plan.sym_per_word
+    slab = P * tasks * -(-L // spw) * (1 if plan.one_chunk else J)
+    total = per_step * steps + slab
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor_ms = total / (sms * clock_mhz * 1e6) * 1e3
+    print(f"[smem] {label}: {per_step:.4f} wavefronts a warp step ({T} of "
+          f"{tasks} warp tasks counted), {steps:.4e} warp steps + "
+          f"{slab:.4e} slab-word reads = {total:.4e} wavefronts: floor "
+          f"{floor_ms:.4f} ms at {sms} SMs x {clock_mhz:.0f} MHz "
+          f"(nvidia-smi clocks.sm now: {sm_clocks()[0]:.0f} MHz)", flush=True)
+    return dict(smem_floor_ms=floor_ms, smem_wavefronts=total,
+                wavefronts_per_step=per_step, sampled_tasks=T, tasks=tasks)
+
+
+def sm_clocks() -> tuple:
+    """(current, max) SM clock of card 0 in MHz, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    now, most = (float(x) for x in out.split(","))
+    return now, most
 
 
 def check_expand_limit(torch, ops, dev) -> None:
@@ -726,11 +867,15 @@ def run_kernel_checks(torch, cases) -> list:
                  max_abs_err=err, ms=ms, host_us=us, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                  library_host_us=lib_us)
+        r.update({key: c[key] for key in ("smem_floor_ms", "smem_wavefronts")
+                  if key in c})
         print(f"[kernel] {c['kernel']:18s} {c['label']:32s} {c['shape']:40s}"
               f" equal  device {ms:9.4f} ms  host {us:8.1f} us  plain "
               f"{plain_ms:9.3f} ms  bound {b_ms:8.4f} ms ({b_by})"
               + (f"  library {lib_ms:8.4f} ms, host {lib_us:6.1f} us"
-                 if lib_ms is not None else ""),
+                 if lib_ms is not None else "")
+              + (f"  shared-memory floor {c['smem_floor_ms']:8.4f} ms"
+                 if "smem_floor_ms" in c else ""),
               flush=True)
         results.append(r)
         del got, want
@@ -1096,6 +1241,38 @@ def plain_spec_stats(torch, kref, scanner, corpus) -> dict:
     return spec_stats_dict(total)
 
 
+def plain_stream_stats(torch, kref, scanner, seq) -> dict:
+    """The speculative groups of ``scanner``'s stream of ``seq`` again
+    through the plain versions of both launches, on the CPU, from the
+    profile the stream used (the one its scan memoised on the group): the
+    m-lane walk and the chained resolve over every full block in one call
+    each (the stream's chain of per-piece calls, its blocks in the same
+    order) -> the stats."""
+    from repro_torch.speculative import SpeculationStats
+
+    pol = scanner.plan.chunking
+    C, Lc = pol.n_chunks, pol.block_len
+    n_full = len(seq) // (C * Lc)
+    chunks = torch.from_numpy(seq[: n_full * C * Lc].reshape(-1, Lc).copy())
+    total = None
+    for g in scanner.groups:
+        if g.mode != "speculative":
+            continue
+        tables = g.tables.cpu()
+        spec = torch.as_tensor(g._spec_profile, dtype=torch.int32)
+        exits = kref.match_bank_chunks(tables, chunks, spec.shape[1], spec)
+        _, totals = kref.spec_resolve_chain(
+            tables, spec, g.starts.to(torch.int32).cpu(), exits, chunks, C,
+            scanner.plan.speculation.max_repair_rounds)
+        hits, repaired, rounds, fallback = totals.tolist()
+        st = SpeculationStats(
+            total_chunks=len(g.indices) * n_full * C, hit_chunks=hits,
+            repaired_chunks=repaired, repair_rounds=rounds,
+            fallback_lanes=fallback)
+        total = st if total is None else total.merged(st)
+    return spec_stats_dict(total)
+
+
 def never_entered(torch, scanner, corpus, m: int) -> dict:
     """{pattern id: m states} no chunk of ``corpus`` is entered in (by the
     exact walk from each start; the padded rows beyond a pattern's own
@@ -1120,7 +1297,8 @@ def never_entered(torch, scanner, corpus, m: int) -> dict:
     return out
 
 
-def speculative_path(torch, ops, kref, corpus, seq) -> dict:
+def speculative_path(torch, ops, kref, corpus, seq, sfa_stream_s: float
+                     ) -> dict:
     from repro_torch.core.dfa import random_dfa
     from repro_torch.core.prosite import load_bank
     from repro_torch.engine import (
@@ -1207,9 +1385,23 @@ def speculative_path(torch, ops, kref, corpus, seq) -> dict:
           "adversarial profile: hits unchanged, chunks repaired and lanes "
           "falling back")
 
-    # 4. A 64-piece stream of the long sequence through the auto scanner.
+    # 4. A 64-piece stream of the long sequence through the auto scanner:
+    # one chained spec_resolve launch a piece and speculative group.
     pieces = np.array_split(seq, STREAM_PIECES)
+    before = dict(path.counts)
     streamed = run("auto: stream", lambda: auto.stream(pieces))
+    stream_launches = {name: path.counts[name] - before[name]
+                       for name in ("spec_resolve", "spec_resolve.chain")}
+    n_spec = sum(g.mode == "speculative" for g in auto.groups)
+    print(f"[speculative] auto: stream {walls['auto: stream']:.4f} s, the "
+          f"SFA bank's stream of the same sequence {sfa_stream_s:.4f} s "
+          f"(phase single); spec_resolve launches {stream_launches} for "
+          f"{STREAM_PIECES} pieces x {n_spec} speculative group(s)",
+          flush=True)
+    check(stream_launches["spec_resolve"] == STREAM_PIECES * n_spec
+          and stream_launches["spec_resolve.chain"] == STREAM_PIECES * n_spec,
+          "the stream launches spec_resolve once a piece and speculative "
+          "group, chained")
     whole = twin("auto: scan of the whole sequence",
                  lambda: auto.scan([seq]))
     walk = twin("auto: mapping of the whole sequence",
@@ -1221,6 +1413,10 @@ def speculative_path(torch, ops, kref, corpus, seq) -> dict:
                              walk[np.arange(len(starts)), starts]),
           "stream equals the scan and the whole-sequence walk")
     stats["stream"] = spec_stats_dict(streamed.speculation)
+    plain_stream, walls["auto: stream, plain versions on the CPU"] = \
+        timed(torch, lambda: plain_stream_stats(torch, kref, auto, seq))
+    check(plain_stream == stats["stream"],
+          "stream: stats equal the plain versions'")
     launches = path.counts
 
     for name, wall in walls.items():
@@ -1233,6 +1429,7 @@ def speculative_path(torch, ops, kref, corpus, seq) -> dict:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the speculative path")
     return dict(walls=walls, stats=stats, launches=launches,
+                stream_launches=stream_launches,
                 modes={"sfa": 18, "enumeration": 5, "speculative": 1},
                 forced_hits=got1.hits)
 
@@ -2167,10 +2364,14 @@ def main(argv=None) -> int:
               f"{len(spills)} spilling", flush=True)
 
     check_expand_limit(torch, ops, dev)
+    clock_now, clock_max = sm_clocks()
+    print(f"[smem] SM clock {clock_now:.0f} MHz now, {clock_max:.0f} MHz "
+          f"at most: the shared-memory floors below take the most",
+          flush=True)
     kernel_results = run_kernel_checks(
-        torch, kernel_cases(torch, ops, kref, dev)
+        torch, kernel_cases(torch, ops, kref, dev, clock_max)
         + form_cases(torch, ops, kref, dev)
-        + spec_cases(torch, ops, kref, dev))
+        + spec_cases(torch, ops, kref, dev, clock_max))
 
     corpus = np.random.default_rng(SEED).integers(
         0, K, (DOCS, DOC_LEN), dtype=np.int32)
@@ -2180,7 +2381,8 @@ def main(argv=None) -> int:
     twin_res = twins(torch, corpus, main_res)
     seq = np.random.default_rng(SEED).integers(0, K, SEQ_LEN, dtype=np.int32)
     single_res = single_path(torch, ops, kref, seq, args.profile)
-    spec_res = speculative_path(torch, ops, kref, corpus, seq)
+    spec_res = speculative_path(torch, ops, kref, corpus, seq,
+                                single_res["walls"]["stream"])
     with tempfile.TemporaryDirectory() as workdir:
         service_res = service_path(torch, ops, corpus, workdir)
     dist_res = distributed_path(torch, ops, corpus, seq, main_res,
@@ -2232,9 +2434,13 @@ def main(argv=None) -> int:
             cases=[{k: v for k, v in r.items() if k != "kernel"}
                    for r in rows],
         ))
-        if name == "match_bank_chunks":     # of them, walks from starts
-            kernels[-1]["from_starts_by_phase"] = {
-                phase: res["launches"]["match_bank_chunks.starts"]
+        forms = {"match_bank_chunks": ("from_starts_by_phase",
+                                       "match_bank_chunks.starts"),
+                 "spec_resolve": ("chained_by_phase", "spec_resolve.chain")}
+        if name in forms:                   # of them, launches of one form
+            key, form = forms[name]
+            kernels[-1][key] = {
+                phase: res["launches"][form]
                 for phase, res in (("speculative", spec_res),
                                    ("service", service_res),
                                    ("distributed", dist_res),

@@ -18,10 +18,12 @@ returns a :class:`StreamResult` whose mapping is bit-identical to
 
 Speculative groups carry exact running *states* instead of whole functions:
 each block is one document whose start states are the stream's current
-states. A piece's blocks take one m-lane chunk walk together; each block
-then takes one ``spec_resolve`` launch and one sync, since the next block
-starts where it ends, and its unresolved lanes fall back to the block's
-enumeration mapping at their entry states.
+states. A piece's blocks take one m-lane chunk walk together and one
+chained ``spec_resolve`` launch (``ops.spec_resolve_chain``): each block
+starts where the one before it ends, and a lane the repair bound leaves
+unresolved is walked on exactly, as the reference falls back to the
+block's enumeration mapping at its entry state. The stats stay on the
+device until ``finish()`` reads them in one sync.
 """
 
 from __future__ import annotations
@@ -94,7 +96,11 @@ class StreamSession:
             for g in scanner.groups
         ]
         self._spec_prof = [None] * len(scanner.groups)
-        self._spec_stats: SpeculationStats | None = None
+        # The speculative blocks' stats: the chunks they held, and on the
+        # device [hit_chunks, repaired, rounds, fallback_lanes] merged over
+        # pieces and groups (None before the first block).
+        self._spec_chunks = 0
+        self._spec_totals: torch.Tensor | None = None
         self._has_spec = any(g.mode == "speculative" for g in scanner.groups)
 
     # -- feeding ------------------------------------------------------------
@@ -155,7 +161,6 @@ class StreamSession:
         costs repairs)."""
         sc = self.scanner
         pol = sc.plan.speculation
-        C, Pg = self.n_chunks, len(g.indices)
         prof = self._spec_prof[gi]
         if prof is None:
             prof = torch.as_tensor(sc._speculation_profile(g, blocks[:1]),
@@ -163,22 +168,16 @@ class StreamSession:
             self._spec_prof[gi] = prof
         chunks = blocks_t.view(-1, self.block_len)     # (n_blocks·C, Lc)
         exits = ops.match_bank_chunks(g.tables, chunks, prof.shape[1], prof)
-        state = self._state[gi]
-        for b in range(blocks.shape[0]):
-            rows = slice(b * C, (b + 1) * C)
-            out = ops.spec_resolve(
-                g.tables, prof, state, exits[:, rows].contiguous(),
-                chunks[rows], C, pol.max_repair_rounds)
-            finals, resolved = out[0][:, 0], out[1]
-            st = SpeculationStats.of(out, Pg * C)
-            if st.fallback_lanes:
-                bm = X.match_bank_parallel(g.tables, blocks_t[b], C)
-                exact = bm.gather(1, state.to(torch.int64)[:, None])[:, 0]
-                finals = torch.where(resolved[:, 0], finals, exact)
-            state = finals
-            self._spec_stats = st if self._spec_stats is None \
-                else self._spec_stats.merged(st)
-        self._state[gi] = state
+        self._state[gi], totals = ops.spec_resolve_chain(
+            g.tables, prof, self._state[gi], exits, chunks, self.n_chunks,
+            pol.max_repair_rounds)
+        self._spec_chunks += len(g.indices) * chunks.shape[0]
+        acc = self._spec_totals
+        if acc is None:
+            self._spec_totals = totals
+        else:      # as SpeculationStats.merged: sums, the rounds' maximum
+            self._spec_totals = acc + totals
+            self._spec_totals[2] = torch.maximum(acc[2], totals[2])
 
     # -- finishing ----------------------------------------------------------
 
@@ -217,7 +216,14 @@ class StreamSession:
             accepted[g.indices] = g.accepting.gather(
                 1, finals.to(torch.int64))[:, 0].cpu().numpy()
             final_states[g.indices] = finals[:, 0].cpu().numpy()
-        sc.last_speculation = self._spec_stats or sc.last_speculation
+        stats = None
+        if self._spec_totals is not None:
+            hits, repaired, rounds, fallback = self._spec_totals.tolist()
+            stats = SpeculationStats(
+                total_chunks=self._spec_chunks, hit_chunks=hits,
+                repaired_chunks=repaired, repair_rounds=rounds,
+                fallback_lanes=fallback)
+        sc.last_speculation = stats or sc.last_speculation
         return StreamResult(
             mapping=mapping,
             final_states=final_states,
@@ -225,5 +231,5 @@ class StreamSession:
             n_symbols=self._n_symbols,
             ids=sc.ids,
             single=sc.single,
-            speculation=self._spec_stats,
+            speculation=stats,
         )

@@ -51,9 +51,10 @@
 //       takes one chunk and starts q = g·32J + lane + 32 j, so one word read
 //       and one extraction serve all J chains (kOne); more than 32 J starts
 //       take several groups g.
-// - Table rows are staged padded to k | 1 words, so 32 lanes in 32
-//   different states on one symbol fall on 32 banks (an even width of 20
-//   words put s*20 + sym on 8 of 32). A table larger than the block's
+// - Table rows are staged padded to k | 1 words (table.cuh, shared with
+//   spec_resolve.cu), so 32 lanes in 32 different states on one symbol
+//   fall on 32 banks (an even width of 20 words put s*20 + sym on 8 of
+//   32). A table larger than the block's
 //   budget stages its first R rows; a step whose warp has a walk on a row
 //   >= R reads that row from global memory (L2), found by a warp vote, so
 //   the common step stays a shared load: exact for any traffic, fast where
@@ -77,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "device.cuh"
+#include "table.cuh"
 
 // Internal linkage throughout: match_bank_chunks.cu and match_chunks.cu
 // build into two libraries of one process, and a template's function-local
@@ -124,16 +126,14 @@ __device__ __forceinline__ int symbol(uint32_t w, int u) {
 
 // The next offset from offset s on symbol a, s a staged row.
 __device__ __forceinline__ int lds_step(const char *ts, int s, int a) {
-  return *reinterpret_cast<const int32_t *>(ts + s + (a << 2));
+  return table::lds_step(ts, s, a);
 }
 
 // The next offset from offset s on symbol a, s any row: rows >= R from the
 // pattern's table in global memory.
 __device__ __forceinline__ int any_step(const Args &a, const char *ts,
                                         const int32_t *tg, int s, int sym) {
-  if (s < a.roff) return lds_step(ts, s, sym);
-  const int state = (int)((unsigned)(s >> 2) * a.inv_row);
-  return __ldg(tg + state * a.k + sym) * a.rowb;
+  return table::any_step(ts, tg, s, sym, a.roff, a.inv_row, a.rowb, a.k);
 }
 
 // Stage steps [t0, t0 + steps) of chunks [b0, b0 + cwv) into buf:
@@ -141,7 +141,7 @@ __device__ __forceinline__ int any_step(const Args &a, const char *ts,
 // w = l, l + 32, ... in (chunk, word) order, (c, tw) carried from one to
 // the next without a division, kSymBatch loads in flight before their
 // stores (a small launch waits on these loads, not on the walk).
-constexpr int kSymBatch = 8, kStageBatch = 8;
+constexpr int kSymBatch = 8;
 
 template <int SPW>
 __device__ __forceinline__ void stage(const Args &a, uint32_t *buf,
@@ -191,37 +191,7 @@ __device__ __forceinline__ void stage(const Args &a, uint32_t *buf,
 __device__ __forceinline__ void stage_table(const Args &a,
                                             const int32_t *tab,
                                             int32_t *dst, int row) {
-  const int total = a.rows * a.k;
-  const int nv = a.tvec ? total >> 2 : 0;  // 16-byte loads, then the rest
-  const int4 *tv = reinterpret_cast<const int4 *>(tab);
-  for (int i0 = threadIdx.x; i0 < nv; i0 += kStageBatch * blockDim.x) {
-    int4 v[kStageBatch];
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < nv) v[u] = __ldg(tv + i);
-    }
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < nv) {
-        int s = 4 * i / a.k, c = 4 * i - s * a.k;
-        const int e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          dst[s * row + c] = e[x] * a.rowb;
-          if (++c == a.k) {
-            c = 0;
-            ++s;
-          }
-        }
-      }
-    }
-  }
-  for (int i = 4 * nv + threadIdx.x; i < total; i += blockDim.x) {
-    const int s = i / a.k;
-    dst[s * row + (i - s * a.k)] = __ldg(tab + i) * a.rowb;
-  }
+  table::stage(tab, dst, a.rows, a.k, row, a.rowb, a.tvec);
 }
 
 // One step of every chain on symbols sym[j].
@@ -349,7 +319,7 @@ __global__ void __launch_bounds__(512) walk_kernel(const Args a) {
       for (int j = 0; j < J; ++j)
         if (live[j])
           out[(size_t)(b0 + c[j]) * a.n_starts + q[j]] =
-              (int)((unsigned)(s[j] >> 2) * a.inv_row);
+              table::state_of(s[j], a.inv_row);
     }
   }
 }
@@ -451,9 +421,7 @@ int run(const void *tables, const void *chunks, const void *starts,
   const unsigned row = (unsigned)(k | 1);
   a.rowb = (int)row * 4;
   a.roff = a.rows * a.rowb;
-  unsigned inv = row;  // Newton: each step doubles the correct low bits
-  for (int i = 0; i < 5; ++i) inv *= 2u - row * inv;
-  a.inv_row = inv;
+  a.inv_row = table::inverse(row);
   a.B = B;
   a.tasks = (B + a.cw - 1) / a.cw * a.groups;
   a.vec = ((uintptr_t)chunks & 15) == 0 && (L & 3) == 0;

@@ -6,9 +6,11 @@ Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, checks the launch error, and adds one to
 ``launches[<kernel>]`` for every kernel launch (plain-version calls are not
 counted; ``compose``, ``compose_fold`` and ``compose_fold_rows`` are one
-kernel and share its count). A walk of ``match_bank_chunks`` from explicit
+kernel and share its count, as do ``spec_resolve`` and
+``spec_resolve_chain``). A walk of ``match_bank_chunks`` from explicit
 starts also adds one to ``form_launches["match_bank_chunks.starts"]``, so a
-caller can tell the speculative pass from the other walks. ``launches`` is
+caller can tell the speculative pass from the other walks, and a chained
+``spec_resolve`` to ``form_launches["spec_resolve.chain"]``. ``launches`` is
 the per-launch count that ``chip_smoke.py`` reads; it does not depend on :mod:`..obs`, which can be
 disabled. Besides, every wrapper call, kernel or plain version, adds one to
 the ``kernels.<wrapper>.calls`` counter of :mod:`..obs` (the reference
@@ -46,7 +48,7 @@ from . import build, ref
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {name: 0 for name in build.KERNELS}
 #: Launches of one form of a kernel, counted in ``launches`` as well.
-form_launches = {"match_bank_chunks.starts": 0}
+form_launches = {"match_bank_chunks.starts": 0, "spec_resolve.chain": 0}
 
 #: ``kernels.<wrapper>.calls`` of :mod:`..obs`, bound once.
 _CALLS = {
@@ -54,7 +56,8 @@ _CALLS = {
                       help=f"calls of the {name} kernel wrapper")
     for name in ("fingerprint_bank", "expand_bank", "match_bank_chunks",
                  "compose", "compose_fold", "compose_fold_rows",
-                 "match_chunks", "fingerprint", "spec_resolve")
+                 "match_chunks", "fingerprint", "spec_resolve",
+                 "spec_resolve_chain")
 }
 
 #: Shared memory a block of ``match_bank_chunks`` / ``match_chunks`` fills
@@ -78,6 +81,18 @@ MATCH_WARPS_PER_SM = 8
 #: 90 % of their lookups).
 MATCH_MIN_ROWS = 32
 
+#: ``spec_resolve``: threads a block of the independent-docs form and the
+#: shared bytes it may take for the profile and the table's staged rows
+#: (two blocks an SM, as the chunk walks) without exits slabs; the bytes
+#: its warps' exits slabs may take together (one block an SM, the table in
+#: what is left). The chained form's blocks take up to the card's opt-in
+#: limit (one block a pattern, few of them).
+SPEC_THREADS, SPEC_SMEM_BLOCK = 512, MATCH_SMEM_BLOCK
+SPEC_SLAB_BYTES = 136 * 1024
+#: Exit words a warp of the chained form stages at a time: 32 chunks at
+#: m = 8, and at least one chunk.
+SPEC_GROUP_WORDS = 256
+
 _VP, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> (kernel library, argument types before the stream).
 _ENTRY_POINTS = {
@@ -96,7 +111,12 @@ _ENTRY_POINTS = {
     "fingerprint_launch": ("fingerprint", [_VP, _VP, _VP, _VP, _LONG, _INT]),
     "spec_resolve_launch": ("spec_resolve",
                             [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
-                             _INT, _INT, _INT, _LONG, _INT, _INT, _INT]),
+                             _INT, _INT, _INT, _LONG, _INT, _INT, _INT, _INT,
+                             _INT, _INT]),
+    "spec_resolve_chain_launch": ("spec_resolve",
+                                  [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                                   _INT, _INT, _INT, _LONG, _INT, _INT, _INT,
+                                   _INT, _INT, _INT]),
 }
 
 #: Largest grid y extent: the kernels that put the pattern axis there.
@@ -282,6 +302,65 @@ def match_plan_of(tables: torch.Tensor, chunks: torch.Tensor,
     dev = t.get_device()
     return match_plan(P, n, k, B, L, n if n_starts is None else n_starts,
                       _sm_count(dev), _smem_limit(dev), from_starts)
+
+
+class ResolvePlan(NamedTuple):
+    """How a ``spec_resolve`` launch lays out its shared memory: ``rows``
+    (R) of the table's ``n`` staged, padded to ``k | 1`` words, the rest read
+    from global memory (L2); ``group`` the chunks whose exits a warp of the
+    chained form stages at a time (0 for independent docs); ``slab`` the
+    words of the exits slab each warp of the independent-docs form stages
+    its 32 docs' exits into (0: none, a hit reads global memory); ``smem``
+    the shared bytes a block."""
+
+    rows: int
+    group: int
+    slab: int
+    smem: int
+    global_rows: int
+
+    @property
+    def branch(self) -> str:
+        return "smem" if self.global_rows == 0 else "smem + L2"
+
+
+@functools.lru_cache(maxsize=1024)
+def resolve_plan(n: int, k: int, m: int, n_chunks: int, smem_limit: int,
+                 chained: bool = False) -> ResolvePlan:
+    """The shared-memory layout of a ``spec_resolve`` launch over (n, k)
+    tables with an m-state profile and docs of ``n_chunks`` chunks on a
+    card whose blocks may opt in to ``smem_limit`` bytes. First the
+    profile (m words), then the chained form's staged exits (``group`` =
+    ⌊SPEC_GROUP_WORDS / m⌋ chunks of m words, between 1 and 32) or the
+    independent form's warp slabs (32 docs of ``n_chunks·m + 1`` words a
+    warp, where the :data:`SPEC_THREADS` / 32 of them fit in
+    :data:`SPEC_SLAB_BYTES` and leave half of :data:`SPEC_SMEM_BLOCK` of
+    the limit), each padded to 16 bytes; then as many table
+    rows as fit in the block's budget: ``smem_limit`` for the chained form
+    and beside slabs (one block an SM), else :data:`SPEC_SMEM_BLOCK`."""
+    rowb = (k | 1) * 4
+
+    def pad(words):
+        return -(-words // 4) * 4
+
+    group = max(1, min(32, SPEC_GROUP_WORDS // m)) if chained else 0
+    slab = 0 if chained else 32 * (n_chunks * m + 1)
+    if 4 * SPEC_THREADS // 32 * slab > min(
+            SPEC_SLAB_BYTES, smem_limit - SPEC_SMEM_BLOCK // 2):
+        slab = 0
+    fixed = 4 * (pad(m) + pad(group * m) + pad(SPEC_THREADS // 32 * slab))
+    budget = (smem_limit if chained or slab
+              else min(SPEC_SMEM_BLOCK, smem_limit))
+    rows = max(0, min(n, (budget - fixed) // rowb))
+    return ResolvePlan(rows, group, slab, fixed + rows * rowb, n - rows)
+
+
+def resolve_plan_of(tables: torch.Tensor, spec: torch.Tensor, n_chunks: int,
+                    chained: bool = False) -> ResolvePlan:
+    """The plan a ``spec_resolve`` launch on these CUDA tensors takes."""
+    _, n, k = tables.shape
+    return resolve_plan(n, k, spec.shape[1], n_chunks,
+                        _smem_limit(tables.get_device()), chained)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -548,6 +627,49 @@ def fingerprint(words: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def _check_resolve(name: str, tables, spec, starts, exits, chunks,
+                   n_chunks: int, max_rounds: int) -> tuple:
+    """The checks both forms of ``spec_resolve`` make -> (device, C, D)."""
+    dev = _check(name, ("tables", "spec", "starts", "exits", "chunks"),
+                 tables, spec, starts, exits, chunks)
+    if tables.dim() != 3 or spec.dim() != 2 or starts.dim() != 1 \
+            or exits.dim() != 3 or chunks.dim() != 2:
+        raise ValueError(f"{name}: tables must be (P, n, k), spec (P, m), "
+                         f"starts (P,), exits (P, B, m), chunks (B, Lc)")
+    P, n, k = tables.shape
+    m = spec.shape[1]
+    B = chunks.shape[0]
+    C = int(n_chunks)
+    if (spec.shape[0] != P or starts.shape[0] != P or m < 1
+            or tuple(exits.shape) != (P, B, m)):
+        raise ValueError(
+            f"{name}: spec {tuple(spec.shape)}, starts "
+            f"{tuple(starts.shape)} and exits {tuple(exits.shape)} do not fit "
+            f"tables {tuple(tables.shape)} and chunks {tuple(chunks.shape)}")
+    if C < 1 or B % C:
+        raise ValueError(f"{name}: {B} chunks are not whole docs of "
+                         f"n_chunks = {n_chunks}")
+    if max_rounds < 0:
+        raise ValueError(f"{name}: max_rounds must be >= 0, got "
+                         f"{max_rounds}")
+    if dev >= 0 and n * (k | 1) * 4 >= 1 << 31:
+        raise ValueError(f"{name}: a ({n}, {k}) table is more than the kernel "
+                         f"indexes")
+    return dev, C, B // C
+
+
+def _resolve_plan_checked(name: str, dev: int, n: int, k: int, m: int,
+                          C: int, chained: bool) -> ResolvePlan:
+    limit = _smem_limit(dev)
+    plan = resolve_plan(n, k, m, C, limit, chained)
+    if plan.smem > limit:
+        raise ValueError(
+            f"{name}: a profile of {m} states takes {plan.smem} bytes of "
+            f"shared memory a block, more than the {limit} a block of "
+            f"{torch.cuda.get_device_name(dev)} may hold")
+    return plan
+
+
 def spec_resolve(tables: torch.Tensor, spec: torch.Tensor,
                  starts: torch.Tensor, exits: torch.Tensor,
                  chunks: torch.Tensor, n_chunks: int, max_rounds: int
@@ -559,46 +681,62 @@ def spec_resolve(tables: torch.Tensor, spec: torch.Tensor,
     bool, hit_chunks, repaired, rounds)``, the last three 0-d int64
     tensors, as :func:`.ref.spec_resolve` computes them in rounds (the CUDA
     kernel walks each lane once; ``csrc/spec_resolve.cu`` says why that is
-    the same function)."""
+    the same function). The table rows the kernel stages are
+    :func:`resolve_plan`'s."""
     _CALLS["spec_resolve"].inc()
-    dev = _check("spec_resolve", ("tables", "spec", "starts", "exits",
-                                  "chunks"),
-                 tables, spec, starts, exits, chunks)
-    if tables.dim() != 3 or spec.dim() != 2 or starts.dim() != 1 \
-            or exits.dim() != 3 or chunks.dim() != 2:
-        raise ValueError("spec_resolve: tables must be (P, n, k), spec "
-                         "(P, m), starts (P,), exits (P, B, m), chunks (B, Lc)")
-    P, n, k = tables.shape
-    m = spec.shape[1]
-    B, Lc = chunks.shape
-    C = int(n_chunks)
-    if (spec.shape[0] != P or starts.shape[0] != P or m < 1
-            or tuple(exits.shape) != (P, B, m)):
-        raise ValueError(
-            f"spec_resolve: spec {tuple(spec.shape)}, starts "
-            f"{tuple(starts.shape)} and exits {tuple(exits.shape)} do not fit "
-            f"tables {tuple(tables.shape)} and chunks {tuple(chunks.shape)}")
-    if C < 1 or B % C:
-        raise ValueError(f"spec_resolve: {B} chunks are not whole docs of "
-                         f"n_chunks = {n_chunks}")
-    if max_rounds < 0:
-        raise ValueError(f"spec_resolve: max_rounds must be >= 0, got "
-                         f"{max_rounds}")
+    dev, C, D = _check_resolve("spec_resolve", tables, spec, starts, exits,
+                               chunks, n_chunks, max_rounds)
     if dev < 0:
         return ref.spec_resolve(tables, spec, starts, exits, chunks, C,
                                 max_rounds)
-    D = B // C
-    if P > _GRID_Y_MAX:
-        raise ValueError(f"spec_resolve: {P} patterns are more than one "
-                         f"launch indexes ({_GRID_Y_MAX})")
+    P, n, k = tables.shape
+    m = spec.shape[1]
     finals = tables.new_empty((P, D))
     resolved = torch.empty((P, D), dtype=torch.bool, device=tables.device)
     if not (P and D):
         totals = torch.zeros(3, dtype=torch.int64, device=tables.device)
         return finals, resolved, totals[0], totals[1], totals[2]
+    plan = _resolve_plan_checked("spec_resolve", dev, n, k, m, C, False)
     totals = torch.empty(3, dtype=torch.int64, device=tables.device)
     _launch("spec_resolve_launch", dev, tables.data_ptr(), spec.data_ptr(),
             starts.data_ptr(), exits.data_ptr(), chunks.data_ptr(),
             finals.data_ptr(), resolved.data_ptr(), totals.data_ptr(),
-            P, n, k, m, D, C, Lc, int(max_rounds))
+            P, n, k, m, D, C, chunks.shape[1], int(max_rounds), plan.rows,
+            plan.slab, plan.smem)
     return finals, resolved, totals[0], totals[1], totals[2]
+
+
+def spec_resolve_chain(tables: torch.Tensor, spec: torch.Tensor,
+                       starts: torch.Tensor, exits: torch.Tensor,
+                       chunks: torch.Tensor, n_chunks: int, max_rounds: int
+                       ) -> tuple:
+    """Validate and repair of a stream's successive blocks in one launch:
+    the arguments of :func:`spec_resolve`, the D docs the blocks of one
+    input in order, doc d + 1 starting from doc d's exact final state; a
+    doc's lane that the bound leaves unresolved is walked on exactly (the
+    stream's enumeration fallback) -> ``(finals (P,) int32, totals (4,)
+    int64)``: the state after the last doc and ``[hit_chunks, repaired,
+    rounds, fallback_lanes]``, the per-doc stats of :func:`spec_resolve`
+    summed over the docs (``rounds`` their maximum), as
+    :func:`.ref.spec_resolve_chain` computes them doc by doc."""
+    _CALLS["spec_resolve_chain"].inc()
+    dev, C, D = _check_resolve("spec_resolve_chain", tables, spec, starts,
+                               exits, chunks, n_chunks, max_rounds)
+    if dev < 0:
+        return ref.spec_resolve_chain(tables, spec, starts, exits, chunks, C,
+                                      max_rounds)
+    P, n, k = tables.shape
+    m = spec.shape[1]
+    if not (P and D):
+        return (starts.clone(),
+                torch.zeros(4, dtype=torch.int64, device=tables.device))
+    plan = _resolve_plan_checked("spec_resolve_chain", dev, n, k, m, C, True)
+    finals = tables.new_empty((P,))
+    totals = torch.empty(4, dtype=torch.int64, device=tables.device)
+    _launch("spec_resolve_chain_launch", dev, tables.data_ptr(),
+            spec.data_ptr(), starts.data_ptr(), exits.data_ptr(),
+            chunks.data_ptr(), finals.data_ptr(), totals.data_ptr(),
+            P, n, k, m, D, C, chunks.shape[1], int(max_rounds), plan.rows,
+            plan.group, plan.smem)
+    form_launches["spec_resolve.chain"] += 1
+    return finals, totals

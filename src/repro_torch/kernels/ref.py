@@ -220,3 +220,44 @@ def spec_resolve(tables: torch.Tensor, spec: torch.Tensor,
         rounds += 1
     return (cur.to(torch.int32), alive, hits, rep_mask.sum(),
             torch.tensor(rounds, dtype=torch.int64, device=dev))
+
+
+def spec_resolve_chain(tables: torch.Tensor, spec: torch.Tensor,
+                       starts: torch.Tensor, exits: torch.Tensor,
+                       chunks: torch.Tensor, n_chunks: int, max_rounds: int
+                       ) -> tuple:
+    """Validate and repair of a stream's successive blocks, block by block.
+
+    The arguments of :func:`spec_resolve`, the D docs the blocks of one
+    input in order -> ``(finals (P,) int32, totals (4,) int64)``: the state
+    after the last doc and ``[hit_chunks, repaired, rounds,
+    fallback_lanes]``.
+
+    The loop a speculative stream ran a block at a time: :func:`spec_resolve`
+    on one doc from the current states, then an exact walk of the doc from
+    its entry state for each lane the bound left unresolved (the stream's
+    enumeration fallback, read off at that state), and the doc's stats
+    merged as ``SpeculationStats.merged`` merges them (sums, and the
+    maximum of the rounds).
+    """
+    P = tables.shape[0]
+    C = n_chunks
+    D = chunks.shape[0] // C
+    rows = torch.arange(P, device=tables.device)
+    state = starts
+    totals = torch.zeros(4, dtype=torch.int64, device=tables.device)
+    for d in range(D):
+        blk = slice(d * C, (d + 1) * C)
+        finals, resolved, hits, repaired, rounds = spec_resolve(
+            tables, spec, state, exits[:, blk], chunks[blk], C, max_rounds)
+        finals, resolved = finals[:, 0], resolved[:, 0]
+        if not bool(resolved.all()):
+            exact = state.to(torch.int64)
+            for sym in chunks[blk].reshape(-1).to(torch.int64):
+                exact = tables[rows, exact, sym].to(torch.int64)
+            finals = torch.where(resolved, finals, exact.to(torch.int32))
+        totals += torch.stack([hits, repaired, torch.zeros_like(rounds),
+                               (~resolved).sum()])
+        totals[2] = torch.maximum(totals[2], rounds)
+        state = finals
+    return state, totals

@@ -803,3 +803,201 @@ def test_spec_resolve_kernel_on_card(cuda, profile, max_rounds):
     elif profile == "miss all":
         assert hits == 0 and repaired == P * D * min(C, max_rounds)
         assert bool(got[1].all()) == (max_rounds >= C)
+
+
+# --------------------------------------------------------------------------
+# spec_resolve's chained form: a stream's blocks in one call
+# --------------------------------------------------------------------------
+
+
+def _chain_inputs(seed, P, n, k, D, C, Lc, m, profile="random"):
+    """Tables, profile, starts, chunks and exits of a chained resolve: a
+    profile that hits every chunk (tables on states 0 .. m-1), misses every
+    chunk (tables never enter the m speculated states) or is random."""
+    rng = np.random.default_rng(seed)
+    hi = {"hit": m, "miss": n - m}.get(profile, n)
+    tables = rng.integers(0, hi, size=(P, n, k)).astype(np.int32)
+    if profile == "hit":
+        spec = np.tile(np.arange(m, dtype=np.int32), (P, 1))
+    elif profile == "miss":
+        spec = np.tile(np.arange(n - m, n, dtype=np.int32), (P, 1))
+    else:
+        spec = rng.integers(0, n, size=(P, m)).astype(np.int32)
+    starts = rng.integers(0, hi, size=P).astype(np.int32)
+    chunks = rng.integers(0, k, size=(D * C, Lc)).astype(np.int32)
+    t = [torch.from_numpy(a) for a in (tables, spec, starts, chunks)]
+    exits = ref.match_bank_chunks(t[0], t[3], m, t[1])
+    return t[0], t[1], t[2], exits, t[3]
+
+
+def _reference_block_loop(tables, spec, starts, chunks, C, max_rounds):
+    """The reference stream's loop over blocks: the JAX package's
+    ``speculative_bank_finals`` on one block from the current states, an
+    exact walk of the block for each lane it leaves unresolved, and the
+    stats merged (sums; the most rounds)."""
+    tab, sp = tables.numpy(), spec.numpy()
+    ch = chunks.numpy()
+    D = ch.shape[0] // C
+    state = starts.numpy().copy()
+    totals = np.zeros(4, dtype=np.int64)
+    rows = np.arange(tab.shape[0])
+    for d in range(D):
+        block = ch[d * C:(d + 1) * C].reshape(1, -1)
+        finals, resolved, hits, repaired, rounds = (np.asarray(x) for x in (
+            jfinals(jnp.asarray(tab), jnp.asarray(sp), jnp.asarray(state),
+                    jnp.asarray(block), n_chunks=C, max_rounds=max_rounds)))
+        exact = state.copy()
+        for sym in block[0]:
+            exact = tab[rows, exact, sym]
+        state = np.where(resolved[:, 0], finals[:, 0], exact).astype(np.int32)
+        totals += [int(hits), int(repaired), 0, int((~resolved).sum())]
+        totals[2] = max(totals[2], int(rounds))
+    return state, totals
+
+
+@pytest.mark.parametrize("case", [*(f"seed {s}" for s in range(6)),
+                                  "one doc", "miss all", "max_rounds 0",
+                                  "ragged Lc", "hit all"])
+def test_spec_resolve_chain_equals_the_block_loop(case):
+    """The chained form (its plain version, through the wrapper) against
+    the reference stream's loop over blocks: the final states and the four
+    totals."""
+    seed = int(case.split()[-1]) if case.startswith("seed") else 11
+    rng = np.random.default_rng(seed)
+    P, n, k, D, C = 3, int(rng.integers(6, 30)), 4, 5, 4
+    Lc, m, rounds = int(rng.integers(2, 9)), int(rng.integers(1, 5)), \
+        int(rng.integers(1, 4))
+    profile = "random"
+    if case == "one doc":
+        D = 1
+    elif case == "miss all":
+        profile, rounds = "miss", 2
+    elif case == "max_rounds 0":
+        rounds = 0
+    elif case == "ragged Lc":
+        Lc = 7
+    elif case == "hit all":
+        profile = "hit"
+    tables, spec, starts, exits, chunks = _chain_inputs(
+        seed, P, n, k, D, C, Lc, m, profile)
+    got = ops.spec_resolve_chain(tables, spec, starts, exits, chunks, C,
+                                 rounds)
+    want = ref.spec_resolve_chain(tables, spec, starts, exits, chunks, C,
+                                  rounds)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+    assert got[0].shape == (P,) and got[1].shape == (4,)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    state, totals = _reference_block_loop(tables, spec, starts, chunks, C,
+                                          rounds)
+    assert np.array_equal(got[0].numpy(), state)
+    assert got[1].tolist() == totals.tolist()
+    hits, repaired, most, fallback = totals.tolist()
+    if profile == "hit":
+        assert hits == P * D * C and repaired == fallback == 0
+    if profile == "miss":
+        assert hits == 0 and repaired == P * D * rounds
+        assert fallback == P * D and most == rounds
+    if rounds == 0:
+        assert repaired == most == 0
+
+
+def test_spec_resolve_chain_rejects_what_the_kernel_does_not_take():
+    tables, spec, starts, exits, chunks = _chain_inputs(1, 2, 6, 4, 3, 2, 5,
+                                                        3)
+    ops.spec_resolve_chain(tables, spec, starts, exits, chunks, 2, 1)
+    for bad in ((tables, spec, starts, exits, chunks, 4, 1),   # 6 % 4
+                (tables, spec, starts, exits[:, :2], chunks, 2, 1),
+                (tables, spec, starts[:1], exits, chunks, 2, 1),
+                (tables, spec[:, :2], starts, exits, chunks, 2, 1),
+                (tables, spec, starts, exits, chunks, 2, -1),
+                (tables[0], spec, starts, exits, chunks, 2, 1),
+                (tables, spec, starts, exits, chunks.to("meta"), 2, 1)):
+        with pytest.raises(ValueError):
+            ops.spec_resolve_chain(*bad)
+    with pytest.raises(TypeError):
+        ops.spec_resolve_chain(tables, spec, starts.to(torch.int64), exits,
+                               chunks, 2, 1)
+    with pytest.raises(ValueError):
+        ops.spec_resolve_chain(tables, spec, starts, exits.transpose(0, 1)
+                               .contiguous().transpose(0, 1), chunks, 2, 1)
+
+
+@pytest.mark.parametrize("n,k,m,C,chained,limit", [
+    (702, 20, 8, 8, False, 232448), (702, 20, 8, 8, True, 232448),
+    (7184, 20, 8, 8, False, 232448), (7184, 20, 8, 8, True, 232448),
+    (13, 4, 3, 4, True, 232448), (702, 20, 40, 8, True, 232448),
+    (702, 20, 40, 8, False, 232448), (702, 20, 8, 8, False, 101376),
+    (3000, 20, 300, 8, True, 232448)])
+def test_resolve_plan_stages_within_the_budget(n, k, m, C, chained, limit):
+    """``spec_resolve``'s shared layout: the profile, a chained group of
+    exits (32 chunks at m = 8, at least one) or a slab of 32 docs' exits a
+    warp where 16 of them fit their budget, and as many table rows as the
+    block's budget holds, all of a 702 x 20 table."""
+    plan = ops.resolve_plan(n, k, m, C, limit, chained)
+    rowb = (k | 1) * 4
+    budget = (limit if chained or plan.slab
+              else min(ops.SPEC_SMEM_BLOCK, limit))
+    assert plan.smem <= budget and plan.rows + plan.global_rows == n
+    assert plan.rows == n or plan.smem + rowb > budget
+    if chained:
+        assert plan.group == max(1, min(32, ops.SPEC_GROUP_WORDS // m))
+        assert plan.slab == 0 and plan.smem >= 4 * m * (1 + plan.group)
+    else:
+        assert plan.group == 0
+        slabs = 16 * 4 * 32 * (C * m + 1)
+        fits = slabs <= min(ops.SPEC_SLAB_BYTES,
+                            limit - ops.SPEC_SMEM_BLOCK // 2)
+        assert plan.slab == (32 * (C * m + 1) if fits else 0)
+        assert plan.smem >= 16 * 4 * plan.slab
+    if (n, k) == (702, 20) and limit == 232448:
+        assert plan.branch == "smem"
+    if n == 7184:
+        assert plan.branch == "smem + L2"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile,m,n,Lc,rounds", [
+    ("hit", 8, 702, 256, 8), ("miss", 8, 702, 256, 1),
+    ("random", 8, 702, 256, 8), ("random", 3, 40, 7, 2),
+    ("random", 40, 60, 12, 1), ("random", 8, 3000, 16, 3)])
+def test_spec_resolve_chain_kernel_on_card(cuda, profile, m, n, Lc, rounds):
+    """The chained kernel against its plain version and the reference
+    stream's loop: one warp a pattern, a profile past 32 states (several
+    ballots), tables past the shared budget (rows from L2), ragged Lc."""
+    P, D, C = 3, 6, 8
+    args = [x.to(cuda) for x in _chain_inputs(n, P, n, 20, D, C, Lc, m,
+                                              profile)]
+    before = (ops.launches["spec_resolve"],
+              ops.form_launches["spec_resolve.chain"])
+    got = ops.spec_resolve_chain(*args, C, rounds)
+    assert (ops.launches["spec_resolve"],
+            ops.form_launches["spec_resolve.chain"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = ref.spec_resolve_chain(*args, C, rounds)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    tables, spec, starts, _, chunks = (x.cpu() for x in args)
+    state, totals = _reference_block_loop(tables, spec, starts, chunks, C,
+                                          rounds)
+    assert np.array_equal(got[0].cpu().numpy(), state)
+    assert got[1].tolist() == totals.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,Lc", [(3, 40, 7), (12, 40, 12), (4, 3000, 16),
+                                    (8, 702, 48)])
+def test_spec_resolve_kernel_forms_on_card(cuda, m, n, Lc):
+    """The independent-docs kernel off its m = 8 path: m not a multiple of
+    4 (exits loaded a word at a time), m > 8 (the profile in shared
+    memory), a table past the block's budget (rows from L2) and the stream's
+    table size."""
+    P, D, C = 4, 1500, 8
+    tables, spec, starts, _, chunks = (
+        x.to(cuda) for x in _chain_inputs(m + n, P, n, 20, D, C, Lc, m))
+    exits = ops.match_bank_chunks(tables, chunks, m, spec)
+    for rounds in (0, 1, 8):
+        got = ops.spec_resolve(tables, spec, starts, exits, chunks, C, rounds)
+        want = ref.spec_resolve(tables, spec, starts, exits, chunks, C,
+                                rounds)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)

@@ -304,6 +304,89 @@ def test_misspeculated_stream_still_exact():
     assert rs.speculation.fallback_lanes > 0
 
 
+def _stream_case(case):
+    """(port scanner, reference scanner, pieces) of one stream case on the
+    702-free small bank: a random 40-state DFA beside a PROSITE pattern,
+    both speculative, blocks of 4 chunks x 16 symbols."""
+    rng = np.random.default_rng(5)
+    chunking = dict(n_chunks=4, block_len=16)
+    spec = {}
+    if case == "hitting profile":         # every state speculated
+        spec = dict(m=40)
+    elif case == "forced repairs":        # states no walk enters
+        spec = dict(m=2, profile_source={"R40": np.asarray([38, 39]),
+                                         "PS00001": np.asarray([0, 1])})
+    elif case == "forced fallback":
+        spec = dict(m=2, profile_source={"R40": np.asarray([38, 39]),
+                                         "PS00001": np.asarray([0, 1])},
+                    max_repair_rounds=1)
+    table = rng.integers(0, 38, size=(40, 20)).astype(np.int32)
+    acc = np.zeros(40, dtype=bool)
+    acc[::3] = True
+    alphabet = load_bank(["PS00001"]).alphabet
+    port_pats = {"PS00001": load_bank(["PS00001"]).dfa(0),
+                 "R40": DFA(table=table, start=0, accepting=acc,
+                            alphabet=alphabet)}
+    ref_pats = {"PS00001": jload_bank(["PS00001"]).dfa(0),
+                "R40": JDFA(table=table, start=0, accepting=acc,
+                            alphabet=alphabet)}
+    port, jref = _pair(port_pats, ref_pats, speculation=spec,
+                       chunking=ChunkPolicy(**chunking))
+    syms = rng.integers(0, 20, size=1000).astype(np.int32)
+    if case == "partial last block":      # 1000 = 15 blocks + 40 symbols
+        cuts = [0, 64 * 3, 64 * 15, 1000]
+    else:                                 # uneven pieces, blocks across them
+        cuts = [0, 7, 150, 151, 613, 1000]
+    return port, jref, [syms[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+@pytest.mark.parametrize("case", ["uneven pieces", "partial last block",
+                                  "hitting profile", "forced repairs",
+                                  "forced fallback"])
+def test_speculative_stream_equals_reference(case):
+    """The port's speculative stream (one chained resolve a piece) against
+    the reference's (one executor call a block): final states, accept flags
+    and every SpeculationStats field."""
+    port, jref, pieces = _stream_case(case)
+    rs, js = port.stream(pieces), jref.stream(pieces)
+    assert np.array_equal(rs.final_states, js.final_states)
+    assert np.array_equal(rs.accepted, js.accepted)
+    assert asdict(rs.speculation) == asdict(js.speculation)
+    st = rs.speculation
+    assert st.total_chunks == 2 * 4 * (1000 // 64)
+    if case == "hitting profile":
+        assert st.hit_chunks > 0 and st.fallback_lanes == 0
+    if case == "forced repairs":
+        assert st.repaired_chunks > 0 and st.fallback_lanes == 0
+    if case == "forced fallback":
+        assert st.repair_rounds == 1 and st.fallback_lanes > 0
+
+
+def test_stream_resolves_once_a_piece_and_group():
+    """One chained spec_resolve call a piece and speculative group, however
+    many blocks the piece completes, and none for a piece that completes
+    no block; the per-doc form is not called."""
+    port, _, pieces = _stream_case("uneven pieces")
+    n_spec = sum(g.mode == "speculative" for g in port.groups)
+    assert n_spec >= 1
+    calls = ops._CALLS["spec_resolve_chain"]
+    one = ops._CALLS["spec_resolve"]
+    before, before_one = calls.value, one.value
+    sess = port.open_stream()
+    done = fed = 0
+    for piece in pieces:
+        fed += len(piece)
+        blocks_before = done
+        sess.feed(piece)
+        done = fed // 64
+        want = n_spec if done > blocks_before else 0
+        assert calls.value - before == want
+        before = calls.value
+    res = sess.finish()
+    assert one.value == before_one
+    assert res.speculation.total_chunks == 2 * 4 * (1000 // 64)
+
+
 # --------------------------------------------------------------------------
 # auto-mode tiering
 # --------------------------------------------------------------------------
