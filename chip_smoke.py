@@ -107,12 +107,28 @@ Phases, in order (any failure raises and exits non-zero):
    ragged prompts x 8 equal the argmax of full forwards; then the reduced
    f32 models of the CPU tests on the card and on the CPU with the same
    weights, within 1e-4;
-10. with ``--profile`` only: trace one compile and one scan per budget, one
+10. the LM training path, launch counts at 0 before it and read after:
+   qwen1.5-0.5B at its published size (464 M f32 parameters from a seeded
+   ``torch.Generator``, AdamW as ``get_run(..., "train_4k")`` gives it,
+   ``remat="full"``, seq 4,096, the global batch cut from 256 to 4 rows in
+   2 micro-batches) takes 6 steps through ``Trainer.fit`` on the synthetic
+   source with a checkpoint every 3 steps: the first loss within 0.5 of
+   ln(151,936), every loss and grad norm finite, the last loss below the
+   first; step walls, train tokens/s, peak memory and the step's model
+   FLOPs and TFLOP/s printed; a second trainer resumes from the step-3
+   checkpoint and runs to 6, its parameters and AdamW state equal to the
+   uninterrupted run's; then 2 steps on the protein source, whose PS00016
+   SFA is built on the card (at least one ``fingerprint`` launch), its
+   batches and labels equal to those of the corpus built on the CPU; then
+   one train step of every reduced f32 model on the card and on the CPU
+   from the same numpy weights (loss, grad norm, Adam's first moment and
+   the updated parameters within the CPU tests' bounds);
+11. with ``--profile`` only: trace one compile and one scan per budget, one
    ``stream`` of the single-pattern phase, the speculative phase's repeat
-   scans beside enumeration's and its stream, and prefill and decode
-   steps of the LM phase's qwen1.5-0.5B parameters, with ``torch.profiler`` (the
-   port's ``obs`` spans included) and print where the device time and the
-   host time go.
+   scans beside enumeration's and its stream, prefill and decode steps of
+   the LM phase's qwen1.5-0.5B parameters and one qwen train step, with
+   ``torch.profiler`` (the port's ``obs`` spans included) and print where
+   the device time and the host time go.
 
 Every compile that measures or compares a construction passes
 ``cache="off"``: under the default shared SFA cache, a repeat compile is a
@@ -2184,7 +2200,391 @@ def lm_serve_path(torch, ops, dev, card: str) -> tuple:
                 card_vs_cpu=host, wall_s=wall, launches=launches), model, params
 
 
-def trace(torch, label: str, fn, n_top: int = 12) -> dict:
+# --------------------------------------------------------------------------
+# Phase 10: the LM training path
+# --------------------------------------------------------------------------
+
+#: qwen1.5-0.5B trains at its published size on seq 4,096 with AdamW as
+#: ``get_run(LM_ARCH, "train_4k")`` gives it (2 micro-batches); the global
+#: batch is cut from 256 rows to 4: 16,384 tokens a step.
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 6, 3
+LM_PROTEIN_STEPS = 2
+#: The synthetic step whose batch is held out: evaluated before and after
+#: the steps and printed (not checked: the first 6 steps of the published
+#: 100-step warmup take lr <= 1.5e-5, and the held-out loss does not move
+#: beyond batch noise; the training losses' fall is batch to batch).
+LM_HELD_OUT_STEP = 10 ** 6
+#: The first loss of a random-init model is near ln(vocab).
+LM_FIRST_LOSS_TOL = 0.5
+#: A resumed run against the uninterrupted one: the same kernels on the
+#: same inputs, so equal (max |difference| of any parameter or state leaf).
+LM_RESUME_TOL = 0.0
+#: bf16 dense tensor-core peak of an H100 SXM (NVIDIA data sheet, 700 W).
+BF16_FLOPS_PER_S = 989e12
+#: One train step of the reduced f32 models, card against CPU, the CPU
+#: tests' bounds against the reference (tests/test_torch_train.py): loss
+#: 1e-5 relative; grad norm 1e-5, or 1e-3 where gradients pass a bf16
+#: rounding (grok's bf16 parameters, mamba2's bf16 operands); Adam's first
+#: moment (0.1 x the clipped gradient at step 1) within 1e-4 of the leaf's
+#: largest entry, or 1e-2 with a bf16 rounding; each updated parameter
+#: within 1e-5 of the leaf's largest (bf16: 8e-3, an ulp there), or 2 lr
+#: where its moment is within the moment's bound of 0 (Adam's first steps
+#: move such an entry by up to lr whatever its sign).
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_NORM_TOL, TRAIN_NORM_TOL_BF16 = 1e-5, 1e-3
+TRAIN_GRAD_TOL, TRAIN_GRAD_TOL_BF16 = 1e-4, 1e-2
+TRAIN_PARAM_TOL, TRAIN_PARAM_TOL_BF16 = 1e-5, 8e-3
+TRAIN_BF16_GRADS = ("grok1_314b", "mamba2_370m")
+TRAIN_LR = 1e-3
+
+
+def lm_train_run(ckpt_dir: str):
+    """qwen1.5-0.5B's ``train_4k`` run, its global batch cut to
+    LM_TRAIN_BATCH, checkpoints every LM_TRAIN_EVERY steps into
+    ``ckpt_dir`` (two kept)."""
+    import dataclasses
+
+    from repro_torch.configs import get_run
+
+    run = get_run(LM_ARCH, "train_4k")
+    return run.replace(
+        shape=dataclasses.replace(run.shape, global_batch=LM_TRAIN_BATCH),
+        checkpoint_dir=ckpt_dir, checkpoint_every=LM_TRAIN_EVERY,
+        keep_checkpoints=2)
+
+
+def lm_trainer(run, dev, source: str = "synthetic"):
+    """A ``Trainer`` for ``run`` on ``dev``: a fresh model, a data iterator
+    without prefetch (its batches built in the step loop, before each
+    step's clock starts), every step logged."""
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import Dist
+    from repro_torch.train.trainer import Trainer
+
+    data = make_pipeline(DataConfig(
+        vocab_size=run.model.vocab_size, seq_len=run.shape.seq_len,
+        global_batch=run.shape.global_batch, seed=run.seed, source=source,
+        device=str(dev)), prefetch=False)
+    return Trainer(model=build_model(run.model), run=run, dist=Dist(),
+                   data=data, log_every=1, device=dev)
+
+
+def train_flops(cfg, batch: int, seq: int) -> tuple:
+    """(model FLOPs, FLOPs executed) of one train step of a dense
+    attention + SwiGLU model, from the shapes, 2 a multiply-add. Model:
+    3 x the forward (the matrix products, the tied or untied unembedding,
+    and the attention products over every key: the port's blockwise loop
+    computes every block, masked ones too). Executed adds what remat
+    recomputes: each block's forward once more (``remat="full"``) and the
+    attention products once more again (the per-q-chunk checkpoint)."""
+    check(cfg.family == "dense" and cfg.mlp_variant == "swiglu"
+          and set(cfg.layer_pattern) == {"attn"}, "train_flops: dense only")
+    d, f, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    tokens = batch * seq
+    attn = L * 4 * seq * H * dh * tokens
+    blocks = 2 * L * (d * dh * (H + 2 * KV) + H * dh * d + 3 * d * f) \
+        * tokens + attn
+    forward = blocks + 2 * d * V * tokens
+    model = 3 * forward
+    executed = model + (blocks if cfg.remat == "full" else 0) + attn
+    return model, executed
+
+
+def free_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_qwen(torch, dev, card: str, workdir: str) -> dict:
+    """(a) qwen1.5-0.5B from random weights, LM_TRAIN_STEPS steps through
+    ``Trainer.fit`` on the synthetic source, checkpoints every
+    LM_TRAIN_EVERY steps; (b) a second trainer resumes from step
+    LM_TRAIN_EVERY and runs to the end: its parameters and optimizer state
+    against the uninterrupted run's last checkpoint."""
+    import math
+    import shutil
+
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.base import leaves_with_paths
+    from repro_torch.train.steps import make_eval_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 products must not run in TF32")
+    ckpt = os.path.join(workdir, "straight")
+    run = lm_train_run(ckpt)
+    cfg = run.model
+    tr = lm_trainer(run, dev)
+    tr.init_state()
+    held_out = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        tr.data.cfg, LM_HELD_OUT_STEP).items()}
+    evaluate = make_eval_step(tr.model, run, tr.dist)
+    eval_before = float(evaluate(tr.params, held_out))
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = timed(torch, lambda: tr.fit(LM_TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    eval_after = float(evaluate(tr.params, held_out))
+    log = out["log"]
+    losses = [m["loss"] for m in log]
+    norms = [m["grad_norm"] for m in log]
+    dts = [m["dt_s"] for m in log]
+    check(len(log) == LM_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses + norms),
+        f"qwen train: every loss and grad norm finite {losses} {norms}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < LM_FIRST_LOSS_TOL,
+          f"qwen train: first loss {losses[0]:.4f} not within "
+          f"{LM_FIRST_LOSS_TOL} of ln(vocab) {math.log(cfg.vocab_size):.4f}")
+    check(losses[-1] < losses[0], f"qwen train: the loss fell {losses}")
+    tokens = LM_TRAIN_BATCH * run.shape.seq_len
+    steady = float(np.median(dts[1:]))
+    model_flops, exec_flops = train_flops(cfg, LM_TRAIN_BATCH,
+                                          run.shape.seq_len)
+    res = dict(params=tr.model.n_params(), micro_batches=run.micro_batches,
+               seq_len=run.shape.seq_len, global_batch=LM_TRAIN_BATCH,
+               losses=losses, grad_norms=norms, step_s=dts, steady_step_s=steady,
+               held_out_loss=[eval_before, eval_after],
+               tokens_per_s=tokens / steady, peak_bytes=peak, fit_wall_s=wall,
+               model_flops=model_flops, executed_flops=exec_flops,
+               model_tflops_per_s=model_flops / steady / 1e12,
+               executed_tflops_per_s=exec_flops / steady / 1e12,
+               mfu=model_flops / steady / BF16_FLOPS_PER_S)
+    print(f"[lm_train] {LM_ARCH} full size ({res['params']:,} f32 "
+          f"parameters, AdamW, remat {cfg.remat!r}, bf16 activations), seq "
+          f"{run.shape.seq_len}, global batch {LM_TRAIN_BATCH} (cut from "
+          f"256) in {run.micro_batches} micro-batches: {LM_TRAIN_STEPS} "
+          f"steps, loss {' '.join(f'{x:.4f}' for x in losses)} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}), held-out batch "
+          f"{eval_before:.4f} -> {eval_after:.4f}, grad norm "
+          f"{' '.join(f'{x:.3f}' for x in norms)}; step wall ms "
+          f"{' '.join(f'{1e3 * x:.1f}' for x in dts)} (median after the "
+          f"first {1e3 * steady:.1f} = {tokens / steady:,.0f} train "
+          f"tokens/s); peak memory {peak / 2**30:.2f} GiB; model "
+          f"{model_flops / 1e12:.1f} TFLOP a step = "
+          f"{res['model_tflops_per_s']:.1f} TFLOP/s ({res['mfu']:.1%} of "
+          f"the bf16 dense peak), with recomputation "
+          f"{exec_flops / 1e12:.1f} TFLOP = "
+          f"{res['executed_tflops_per_s']:.1f} TFLOP/s; fit wall "
+          f"{wall:.1f} s with {LM_TRAIN_STEPS // LM_TRAIN_EVERY + 1} "
+          f"checkpoints ({card})", flush=True)
+
+    # (b): the uninterrupted run's last checkpoint goes aside, so the
+    # resumed trainer finds step LM_TRAIN_EVERY as the latest.
+    last = f"step_{LM_TRAIN_STEPS:08d}"
+    kept = os.path.join(workdir, "kept")
+    os.makedirs(kept)
+    os.replace(os.path.join(ckpt, last), os.path.join(kept, last))
+    del tr
+    free_cuda(torch)
+    tr = lm_trainer(run, dev)
+    check(tr.try_resume() and tr.step == LM_TRAIN_EVERY,
+          f"qwen train: resumes at step {LM_TRAIN_EVERY}, not {tr.step}")
+    out2, wall2 = timed(torch, lambda: tr.fit(LM_TRAIN_STEPS))
+    want, _ = restore_tree(kept, LM_TRAIN_STEPS,
+                           {"params": tr.params, "opt": tr.opt_state})
+    got = {"params": tr.params, "opt": tr.opt_state}
+    worst, n_diff, n_all = 0.0, 0, 0
+    for (path, a), (_, b) in zip(leaves_with_paths(want),
+                                 leaves_with_paths(got)):
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, float(diff.max()))
+        n_diff += int((diff > 0).sum())
+        n_all += diff.numel()
+    check(worst <= LM_RESUME_TOL,
+          f"qwen train: resumed run against the uninterrupted one: max "
+          f"|difference| {worst:.3e} in {n_diff:,} of {n_all:,} values")
+    resumed = [m["loss"] for m in out2["log"]]
+    res.update(resumed_losses=resumed, resume_wall_s=wall2,
+               resume_max_abs_diff=worst, resume_values=n_all)
+    print(f"[lm_train] {LM_ARCH} resumed at step {LM_TRAIN_EVERY} and run "
+          f"to {LM_TRAIN_STEPS}: losses "
+          f"{' '.join(f'{x:.4f}' for x in resumed)}; "
+          f"parameters and AdamW state ({n_all:,} values) against the "
+          f"uninterrupted run: max |difference| {worst:.3e} ({n_diff:,} "
+          f"differ; bound {LM_RESUME_TOL}); wall {wall2:.1f} s ({card})",
+          flush=True)
+    del tr, want, got
+    free_cuda(torch)
+    shutil.rmtree(ckpt)
+    shutil.rmtree(kept)
+    return res
+
+
+def train_protein(torch, ops, dev, card: str, workdir: str) -> tuple:
+    """(c) LM_PROTEIN_STEPS steps on the protein source: its corpus built
+    on the card (PS00016's SFA by ``construct_sfa(engine="vectorized")``,
+    whose store fingerprints with the ``fingerprint`` kernel), launch
+    counts at 0 before; the batches, labels included, equal those of the
+    same corpus built on the CPU. Returns the results and the trainer."""
+    import dataclasses
+    import math
+
+    from repro_torch.data import protein as dprotein
+
+    run = lm_train_run(os.path.join(workdir, "protein"))
+    run = run.replace(checkpoint_every=10 ** 9)
+    dprotein._CORPUS_CACHE.clear()
+    ops.reset_launches()
+    tr = lm_trainer(run, dev, source="protein")
+    out, wall = timed(torch, lambda: tr.fit(LM_PROTEIN_STEPS))
+    launches = {**ops.launches, **ops.form_launches}
+    check(launches["fingerprint"] >= 1,
+          f"protein source: no fingerprint launch {launches}")
+    losses = [m["loss"] for m in out["log"]]
+    check(all(math.isfinite(x) for x in losses), f"protein losses {losses}")
+    card_cfg = tr.data.cfg
+    cpu_cfg = dataclasses.replace(card_cfg, device="cpu")
+    for step in range(LM_PROTEIN_STEPS):
+        a = dprotein.protein_batch(card_cfg, step)
+        b = dprotein.protein_batch(cpu_cfg, step)
+        check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
+              f"protein batch {step}: card corpus against CPU corpus")
+    sfa_card = dprotein._CORPUS_CACHE[("PS00016", card_cfg.device)].sfa
+    sfa_cpu = dprotein._CORPUS_CACHE[("PS00016", "cpu")].sfa
+    check(np.array_equal(sfa_card.delta, sfa_cpu.delta),
+          "PS00016's SFA: card against CPU")
+    labels = int(sum(dprotein.protein_batch(card_cfg, s)["motif_label"].sum()
+                     for s in range(LM_PROTEIN_STEPS)))
+    print(f"[lm_train] {LM_ARCH} on the protein source: {LM_PROTEIN_STEPS} "
+          f"steps, losses {' '.join(f'{x:.4f}' for x in losses)}, wall "
+          f"{wall:.1f} s; PS00016's SFA ({sfa_card.n_states} states) built "
+          f"on the card, launches {launches}; batches and labels "
+          f"({labels} of {LM_PROTEIN_STEPS * LM_TRAIN_BATCH} rows carry "
+          f"the motif) equal the CPU corpus's ({card})", flush=True)
+    return dict(losses=losses, wall_s=wall, launches=launches,
+                sfa_states=sfa_card.n_states, motif_rows=labels), tr
+
+
+def numpy_weights(torch, specs, seed: int) -> dict:
+    """Weights for a ParamSpec tree from a numpy seed, on the CPU: the
+    reference's distributions, and small noise on what it starts at zero or
+    one (the CPU tests' ``numpy_params``)."""
+    from repro_torch.models.base import map_specs, torch_dtype
+
+    rng = np.random.default_rng(seed)
+
+    def one(s):
+        if s.init == "uniform_scaled":
+            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+            b = np.sqrt(1.0 / max(fan_in, 1))
+            a = rng.uniform(-b, b, s.shape)
+        elif s.init == "ones":
+            a = 1.0 + 0.1 * rng.normal(size=s.shape)
+        else:
+            a = rng.normal(size=s.shape) * (s.scale if s.init == "normal"
+                                            else 0.02)
+        return torch.from_numpy(a.astype(np.float32)).to(torch_dtype(s.dtype))
+
+    return map_specs(one, specs)
+
+
+def train_card_against_cpu(torch, dev) -> dict:
+    """(d) One train step (step 1, past warmup; 2 micro-batches) of every
+    reduced f32 model on the card and on the CPU from the same numpy
+    weights and batch: loss, grad norm, Adam's first moment and the
+    updated parameters within the TRAIN_* bounds."""
+    from repro_torch.config import HOST_MESH, SHAPES, OptimizerConfig, RunConfig
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.base import leaves_with_paths, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import Dist
+    from repro_torch.train.steps import make_train_step
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ARCH_IDS:
+        if arch == "paper_sfa":
+            continue
+        cfg = lm_reduced_cfg(arch)
+        run = RunConfig(model=cfg, shape=SHAPES["train_4k"], mesh=HOST_MESH,
+                        optimizer=OptimizerConfig(lr=TRAIN_LR, warmup_steps=1),
+                        micro_batches=2)
+        weights = numpy_weights(torch, build_model(cfg).param_specs(), SEED)
+        toks, extra = lm_inputs(torch, cfg, 4, 17, SEED, cpu)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous(), **extra}
+        res = []
+        for d in (dev, cpu):
+            model = build_model(cfg)
+            params = tree_map(lambda t, d=d: t.to(d, copy=True), weights)
+            step, opt = make_train_step(model, run, Dist())
+            p, s, met = step(params, opt.init(params, model.param_specs()), 1,
+                             {k: v.to(d) for k, v in batch.items()})
+            res.append(({k: float(v) for k, v in met.items()},
+                        {q: t.float().cpu() for q, t in leaves_with_paths(p)},
+                        {q: t.float().cpu() for q, t in leaves_with_paths(s)}))
+        (met_c, p_c, s_c), (met_h, p_h, s_h) = res
+        bf16 = arch in TRAIN_BF16_GRADS
+        norm_tol = TRAIN_NORM_TOL_BF16 if bf16 else TRAIN_NORM_TOL
+        grad_tol = TRAIN_GRAD_TOL_BF16 if bf16 else TRAIN_GRAD_TOL
+        errs = dict(
+            loss=abs(met_c["loss"] - met_h["loss"]) / abs(met_h["loss"]),
+            grad_norm=abs(met_c["grad_norm"] - met_h["grad_norm"])
+            / met_h["grad_norm"],
+            moment=max(lm_rel(s_h[q], s_c[q]) for q in s_h if q[-1] == "m"))
+        worst_param = 0.0
+        dtypes = {q: t.dtype for q, t in leaves_with_paths(weights)}
+        for q, a in p_h.items():
+            m = s_h[q + ("m",)].abs()
+            ptol = (TRAIN_PARAM_TOL_BF16 if dtypes[q] == torch.bfloat16
+                    else TRAIN_PARAM_TOL)
+            tol = ptol * a.abs().max() + torch.where(
+                m <= max(1e-3, grad_tol) * m.max(), 2 * TRAIN_LR, 0.0)
+            worst_param = max(worst_param,
+                              float(((p_c[q] - a).abs() / tol).max()))
+        errs["param_over_bound"] = worst_param
+        check(errs["loss"] <= TRAIN_LOSS_TOL and errs["grad_norm"] <= norm_tol
+              and errs["moment"] <= grad_tol and worst_param <= 1.0,
+              f"{arch}: train step, card against CPU {errs}")
+        out[arch] = errs
+    worst = {k: max(e[k] for e in out.values()) for k in next(iter(
+        out.values()))}
+    f32_moment = max(e["moment"] for a, e in out.items()
+                     if a not in TRAIN_BF16_GRADS)
+    print(f"[lm_train] card against CPU, one train step of {len(out)} "
+          f"reduced f32 models: worst relative error loss "
+          f"{worst['loss']:.2e}, grad norm {worst['grad_norm']:.2e}, Adam's "
+          f"first moment {worst['moment']:.2e} ("
+          f"{max(out, key=lambda a: out[a]['moment'])}; without a bf16 "
+          f"rounding {f32_moment:.2e}) (bounds {TRAIN_LOSS_TOL}, "
+          f"{TRAIN_NORM_TOL} / {TRAIN_GRAD_TOL}; bf16-rounded gradients "
+          f"{TRAIN_NORM_TOL_BF16} / {TRAIN_GRAD_TOL_BF16}); updated "
+          f"parameters at {worst['param_over_bound']:.2f} of their bound",
+          flush=True)
+    return out
+
+
+def lm_train_path(torch, ops, dev, card: str) -> tuple:
+    """Phase 10: the LM training path. Launch counts at 0 before its runs,
+    read after: (a) and (b) launch none of the seven kernels, (c) builds
+    PS00016's SFA on the card. Returns the results and the protein run's
+    trainer (for ``--profile``)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as workdir:
+        free = shutil.disk_usage(workdir).free
+        print(f"[lm_train] checkpoints under a temporary directory, "
+              f"{free / 2**30:.0f} GiB free", flush=True)
+        qwen = train_qwen(torch, dev, card, workdir)
+        synthetic = {**ops.launches, **ops.form_launches}
+        check(not any(synthetic.values()),
+              f"qwen on the synthetic source launched SFA kernels {synthetic}")
+        protein, trainer = train_protein(torch, ops, dev, card, workdir)
+    host = train_card_against_cpu(torch, dev)
+    launches = {**ops.launches, **ops.form_launches}
+    wall = time.perf_counter() - t0
+    print(f"[lm_train] phase wall {wall:.1f} s; kernel launches {launches}",
+          flush=True)
+    return dict(qwen=qwen, protein=protein, card_vs_cpu=host, wall_s=wall,
+                launches=launches), trainer
+
+
+def trace(torch, label: str, fn, n_top: int = 12, groups=None) -> dict:
     """One traced run of ``fn`` under ``torch.profiler``: its wall, the
     device's busy time, device time by kernel and host time by operation
     (self time on the CPU: the launches' own runtime calls, allocations and
@@ -2218,6 +2618,13 @@ def trace(torch, label: str, fn, n_top: int = 12) -> dict:
     print(f"[profile] {label}: traced wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({busy_ms / (wall * 1e3):.1%}), "
           f"{sum(e.count for e in kernels)} kernels", flush=True)
+    by_group = {}
+    for name, match in (groups or {}).items():
+        hit = [e for e in kernels if match(e.key)]
+        by_group[name] = dict(calls=sum(e.count for e in hit), device_ms=sum(
+            e.self_device_time_total for e in hit) / 1e3)
+        print(f"[profile]   group {name}: {by_group[name]['device_ms']:.1f} "
+              f"ms in {by_group[name]['calls']} kernels", flush=True)
     for t in top:
         print(f"[profile]   {t['device_ms']:9.3f} ms {t['calls']:6d}x"
               f"  {t['name']}", flush=True)
@@ -2225,7 +2632,8 @@ def trace(torch, label: str, fn, n_top: int = 12) -> dict:
         print(f"[profile]   host {t['host_ms']:9.3f} ms {t['calls']:6d}x"
               f"  {t['name']}", flush=True)
     return dict(wall_s=wall, device_busy_ms=busy_ms, top=top,
-                host_top=host_top)
+                host_top=host_top, kernels=sum(e.count for e in kernels),
+                groups=by_group)
 
 
 def profile_main_path(torch, corpus) -> dict:
@@ -2285,6 +2693,68 @@ def profile_lm_decode(torch, model, params) -> dict:
         "lm decode": trace(torch, f"lm_serve: 5 decode steps, {LM_SLOTS} "
                                   f"slots", lambda: [eng.step()
                                                      for _ in range(5)]),
+    }
+
+
+#: Device kernels of a train step by kind, from their names: f32 products
+#: on the CUDA cores (cuBLAS/CUTLASS SIMT and FFMA kernels: the attention's
+#: f32 score and value products), the other products (cuBLAS's Hopper
+#: ``nvjet`` kernels and tensor-core GEMMs: the bf16 weight products), and
+#: the rest (elementwise passes, reductions, copies, casts).
+def _f32_gemm(k: str) -> bool:
+    return "gemm" in k.lower() and ("sgemm" in k or "f32f32_f32f32" in k
+                                    or "ffma" in k)
+
+
+TRAIN_GROUPS = {
+    "f32 GEMM (CUDA cores)": _f32_gemm,
+    "other GEMM (tensor cores)": lambda k: not _f32_gemm(k) and (
+        "nvjet" in k or "gemm" in k.lower()),
+}
+
+
+def profile_lm_train(torch, trainer) -> dict:
+    """Device and host breakdown of one qwen1.5-0.5B train step (the
+    lm_train phase's last trainer and state, a synthetic batch): its
+    kernels, device busy share, top device operations and kernel kinds;
+    then one layer's blockwise attention at the step's shape (a
+    micro-batch of 2 rows, bf16), forward and backward through its
+    per-q-chunk checkpoint, the loop's own launches and times."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.attention import blockwise_attention
+
+    batch = {k: torch.from_numpy(v).to(trainer.device) for k, v in
+             synthetic_batch(trainer.data.cfg, trainer.step).items()}
+
+    def step():
+        _, _, metrics = trainer.train_step_fn(trainer.params,
+                                              trainer.opt_state,
+                                              trainer.step, batch)
+        float(metrics["loss"])
+
+    cfg, run = trainer.model.cfg, trainer.run
+    rows = LM_TRAIN_BATCH // run.micro_batches
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    q, k, v = (torch.randn((rows, run.shape.seq_len, h, cfg.resolved_head_dim()),
+                           generator=gen, device=trainer.device,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+
+    def attention():
+        out = blockwise_attention(q, k, v, causal=True)
+        torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    step()                                        # warm
+    attention()
+    return {
+        "lm train step": trace(
+            torch, f"lm_train: one train step ({LM_TRAIN_BATCH} x "
+                   f"{run.shape.seq_len} tokens, {run.micro_batches} "
+                   f"micro-batches)", step, n_top=16, groups=TRAIN_GROUPS),
+        "lm attention layer": trace(
+            torch, f"lm_train: one layer's blockwise attention, forward and "
+                   f"backward ({rows} x {run.shape.seq_len}, "
+                   f"{cfg.n_heads} heads)", attention, groups=TRAIN_GROUPS),
     }
 
 
@@ -2389,6 +2859,7 @@ def main(argv=None) -> int:
                                 single_res, spec_res, service_res)
     two_res = two_rank_path(torch, corpus, main_res)
     lm_res, lm_model, lm_params = lm_serve_path(torch, ops, dev, card)
+    train_res, trainer = lm_train_path(torch, ops, dev, card)
     prof_res = None
     if args.profile:
         from repro_torch import obs
@@ -2397,6 +2868,7 @@ def main(argv=None) -> int:
         prof_res = profile_main_path(torch, corpus)
         prof_res.update(profile_speculative(torch, corpus, seq))
         prof_res.update(profile_lm_decode(torch, lm_model, lm_params))
+        prof_res.update(profile_lm_train(torch, trainer))
 
     csrc, tpu = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     sources = {
@@ -2423,7 +2895,8 @@ def main(argv=None) -> int:
                     "service": service_res["launches"][name],
                     "distributed": dist_res["launches"][name],
                     "distributed, 2 ranks": two_res["launches"][name],
-                    "lm_serve": lm_res["launches"][name]}
+                    "lm_serve": lm_res["launches"][name],
+                    "lm_train": train_res["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -2461,6 +2934,7 @@ def main(argv=None) -> int:
             distributed=dist_res,
             distributed_2_ranks=two_res,
             lm_serve=lm_res,
+            lm_train=train_res,
             profile=prof_res,
         )
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -4,7 +4,10 @@ Training and prefill use the reference's blockwise (flash-style) form in
 plain PyTorch: a loop over query chunks and, inside it, over KV chunks,
 carrying the ``(m, s, o)`` partial-softmax accumulators — the
 ``core.monoid.softmax_monoid`` element — so peak memory is one
-(Cq × Ckv) score block per head whatever the sequence length.
+(Cq × Ckv) score block per head whatever the sequence length. Under
+autograd each query chunk's KV loop is checkpointed, as the reference's
+``jax.checkpoint`` on it: the backward pass recomputes the score blocks
+rather than keeping one per (q, kv) pair.
 
 Decode attends one query against the whole cache. Windowed layers (SWA,
 recurrentgemma's local attention) keep a **ring cache** of window size.
@@ -21,6 +24,7 @@ tensors it is given and returns them.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..sharding.rules import Rules, constrain
@@ -120,9 +124,8 @@ def blockwise_attention(
     qc = q.reshape(B, nq, q_chunk, KV, G, dh).float()
     kc = k.reshape(B, nk, kv_chunk, KV, dh).float()
     vc = v.reshape(B, nk, kv_chunk, KV, dh)
-    outs = []
-    for qi in range(nq):
-        q_blk = qc[:, qi]
+
+    def q_chunk_out(qi: int, q_blk, kc, vc):
         qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
         m = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -151,7 +154,20 @@ def blockwise_attention(
                 "bhgqk,bkhd->bhgqd", p.to(v_blk.dtype).float(), v_blk.float())
             m = m_new
         out = o / torch.clamp(s, min=1e-30)[..., None]           # (B,KV,G,Cq,dh)
-        outs.append(out.permute(0, 3, 1, 2, 4))                  # (B,Cq,KV,G,dh)
+        return out.permute(0, 3, 1, 2, 4)                        # (B,Cq,KV,G,dh)
+
+    # Flash-style memory under autograd, as the reference's jax.checkpoint on
+    # the per-q-chunk body: a q chunk's score blocks are recomputed in the
+    # backward pass, so only its inputs and output outlive the forward.
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for qi in range(nq):
+        if remat:
+            outs.append(checkpoint(q_chunk_out, qi, qc[:, qi], kc, vc,
+                                   use_reentrant=False))
+        else:
+            outs.append(q_chunk_out(qi, qc[:, qi], kc, vc))
     out = torch.cat(outs, dim=1).reshape(B, Sq, H, dh)
     return out.to(q.dtype)
 

@@ -23,7 +23,8 @@ from ..device import resolve_device
 from ..sharding.rules import Rules
 
 #: ParamSpec dtype names -> torch dtypes.
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}
 
 
 def torch_dtype(name: str) -> torch.dtype:

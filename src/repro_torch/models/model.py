@@ -7,7 +7,9 @@ the ``meta`` device — nothing is allocated — until ``init`` draws them or
 ``load`` takes a tree (``base.params_from_numpy`` carries the reference's
 over). ``forward``, ``init``, ``n_params``, ``cache_specs`` and
 ``init_cache`` keep the reference's signatures; ``forward(None, ...)`` uses
-the model's own parameters.
+the model's own parameters. The registered parameters are frozen
+(``requires_grad=False``): training (``train/steps.py``) takes gradients
+with respect to the tree it passes to ``forward``.
 
 ``input_specs``, ``param_structs`` and ``cache_structs`` (the reference's
 dry-run stand-ins) wait for the dry-run slice (ROADMAP queue 1, item 9c).

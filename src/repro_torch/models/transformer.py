@@ -13,15 +13,25 @@ pattern) keep the reference's stacked layout, a leading ``n_groups`` axis on
 every leaf, so weights carry over without a reshape; the reference's
 ``lax.scan`` over that axis is a loop here. A remainder (depth % pattern)
 runs as unstacked tail blocks (recurrentgemma's 38 = 12×(2 rglru + 1 lattn)
-+ 2 rglru). ``remat`` is a training concern and waits for the training
-slice.
++ 2 rglru).
+
+``cfg.remat`` applies to a train-mode forward under autograd, block by
+block: ``"full"`` checkpoints each block (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` on its scan body), ``"dots"`` checkpoints
+it saving the outputs of its matrix products without batch dimensions
+(the reference's ``checkpoint_dots_with_no_batch_dims`` policy). The
+gradients do not depend on it.
 
 A cache passed to ``lm_forward`` is updated in place and returned.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import ModelConfig
 from ..sharding.rules import Dist
@@ -195,6 +205,34 @@ def blocks_in_run_order(params: dict, cfg: ModelConfig, cache: dict | None = Non
                    bcache.get(key) if bcache else None)
 
 
+def _no_batch_dot(op, args) -> bool:
+    """A matrix product without batch dimensions: ``mm``/``addmm``, or a
+    ``bmm`` over a batch of one (how ``einsum`` runs a weight product)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return True
+    return op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if _no_batch_dot(op, args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, remat: str, mode: str):
+    """``fn`` under ``remat`` ("none" | "full" | "dots") when it runs a
+    train-mode forward under autograd; ``fn`` itself otherwise."""
+    if remat == "none" or mode != "train" or not torch.is_grad_enabled():
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **extra)
+
+
 def lm_forward(
     params: dict,
     tokens: torch.Tensor,           # (B, S) int
@@ -213,7 +251,7 @@ def lm_forward(
     x = embed(params["embed"], tokens, cfg, dist.rules)
     if prefix_embeds is not None:
         n_pref = prefix_embeds.shape[1]
-        x[:, :n_pref] = prefix_embeds.to(x.dtype)
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, n_pref:]], dim=1)
 
     if mode == "decode":
         assert cache_pos is not None
@@ -227,8 +265,9 @@ def lm_forward(
             torch.arange(S, dtype=torch.int32, device=dev), (B, S))
 
     aux_total = 0.0
+    run_block = remat_wrap(block_forward, cfg.remat, mode)
     for kind, bparams, bcache in blocks_in_run_order(params, cfg, cache):
-        x, new_cache, aux = block_forward(
+        x, new_cache, aux = run_block(
             bparams, x, cfg, dist, kind,
             mode=mode, positions=positions, cache=bcache, cache_pos=cache_pos,
         )

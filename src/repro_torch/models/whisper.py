@@ -6,7 +6,9 @@ bidirectional self-attention over frames with sinusoidal positions; the
 decoder is causal self-attention + cross-attention to the encoder states.
 
 Decode runs the *decoder*: a self-attention KV cache plus cross-attention
-K/V computed once at prefill. The cache is written in place.
+K/V computed once at prefill. The cache is written in place. A train-mode
+forward under autograd checkpoints each encoder and decoder layer when
+``cfg.remat == "full"``, as the reference does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .attention import (
 )
 from .base import ParamSpec, stack_tree, torch_dtype, tree_map
 from .layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, unembed
+from .transformer import remat_wrap
 
 
 def sinusoidal(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
@@ -88,6 +91,12 @@ def whisper_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     }
 
 
+def _remat(fn, cfg: ModelConfig, mode: str):
+    """The reference checkpoints whisper's layer bodies under ``remat ==
+    "full"`` only (``"dots"`` runs them as they are)."""
+    return remat_wrap(fn, "full" if cfg.remat == "full" else "none", mode)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, dist: Dist) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed embeddings -> encoder states."""
     B, S, d = frames.shape
@@ -96,8 +105,8 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, dist: Dist) -> torch.
     x = x + sinusoidal(torch.arange(S, device=dev), d, x.dtype)[None]
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=dev), (B, S))
-    for layer in range(cfg.n_encoder_layers):
-        bparams = tree_map(lambda t: t[layer], params["enc_blocks"])
+
+    def layer_fn(bparams, x):
         h = rmsnorm(x, bparams["pre_norm"], cfg.norm_eps)
         out, _ = attention_layer(
             bparams["attn"], h, cfg, dist.rules,
@@ -105,7 +114,11 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, dist: Dist) -> torch.
         )
         x = x + out
         h2 = rmsnorm(x, bparams["post_norm"], cfg.norm_eps)
-        x = x + mlp(bparams["ffn"], h2, cfg, dist.rules)
+        return x + mlp(bparams["ffn"], h2, cfg, dist.rules)
+
+    run_layer = _remat(layer_fn, cfg, "train")
+    for layer in range(cfg.n_encoder_layers):
+        x = run_layer(tree_map(lambda t: t[layer], params["enc_blocks"]), x)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -141,8 +154,8 @@ def whisper_forward(
         enc = encode(params, frames, cfg, dist)
 
     use_cache = cache is not None
-    for layer in range(cfg.n_layers):
-        bparams = tree_map(lambda t: t[layer], params["dec_blocks"])
+
+    def layer_fn(bparams, x, layer: int):
         h = rmsnorm(x, bparams["pre_norm"], cfg.norm_eps)
         blk_cache = ({"k": cache["self"]["k"][layer],
                       "v": cache["self"]["v"][layer]} if use_cache else None)
@@ -162,7 +175,12 @@ def whisper_forward(
                 cache["cross_v"][layer] = cv
         x = x + cross_attention_layer(bparams["cross_attn"], h2, (ck, cv), cfg, dist.rules)
         h3 = rmsnorm(x, bparams["post_norm"], cfg.norm_eps)
-        x = x + mlp(bparams["ffn"], h3, cfg, dist.rules)
+        return x + mlp(bparams["ffn"], h3, cfg, dist.rules)
+
+    run_layer = _remat(layer_fn, cfg, mode)
+    for layer in range(cfg.n_layers):
+        x = run_layer(tree_map(lambda t: t[layer], params["dec_blocks"]), x,
+                      layer)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, dist.rules, transpose=True)

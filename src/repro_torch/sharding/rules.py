@@ -6,7 +6,7 @@ vocabulary and defaults, so an annotation reads the same in both packages,
 but it runs the LM half on one device: ``Rules.spec`` returns a plain tuple
 of mesh-axis names (there is no ``PartitionSpec`` here), ``constrain`` is
 the identity, and a ``Dist`` that carries a mesh raises until the sharded
-LM path is ported (ROADMAP queue 1, item 9c: ``launch/{train,mesh,dryrun}``
+LM path is ported (ROADMAP queue 1, item 9c: ``launch/{mesh,dryrun}``
 with the sharded LM path).
 """
 
@@ -16,8 +16,8 @@ from dataclasses import dataclass, field, replace
 
 #: The ROADMAP item that brings a mesh to the LM half.
 SHARDED_LM_ITEM = ("ROADMAP queue 1 item 9c: the sharded LM path "
-                   "(launch/{train,mesh,dryrun}, constrain over a DeviceMesh, "
-                   "moe.py's shard_map branch)")
+                   "(launch/{mesh,dryrun}, launch/train on several ranks, "
+                   "constrain over a DeviceMesh, moe.py's shard_map branch)")
 
 # Logical axis vocabulary. Weights and activations use disjoint names for the
 # model dim so FSDP (weights) and activation layout can differ.

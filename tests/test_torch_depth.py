@@ -17,7 +17,17 @@ within a factor of 10 of the reference's, on the same side of the bound,
 and its f32 logits no further from the reference's than 10 times the
 reference's own f32 decode-vs-forward spread (1e-4 where that is smaller).
 
-Run as a script, it prints the sweep at 2, 4, 8, 16 and 24 layers:
+The gradients grow with depth the same way: the global norm of the train
+loss's gradient on the same weights and tokens, in both packages, grows
+by orders of magnitude from 2 to 8 layers in f32, and the port's stays
+within 1e-2 of the reference's (the stack amplifies summation-order
+differences here too: measured 1.2e-5 at 2 layers, 1.1e-3 at 8). A
+random-init qwen's
+gradient norm in the millions (as ``chip_smoke.py``'s train phase prints
+at full size) is the model's, not the port's.
+
+Run as a script, it prints the sweep at 2, 4, 8, 16 and 24 layers, and
+the gradient norms in f32 and bf16:
 
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/test_torch_depth.py
 
@@ -113,6 +123,47 @@ def sweep(n_layers: int, width: dict, device: str = "cpu") -> dict:
     return out
 
 
+#: The port's f32 gradient norm against the reference's, relative.
+GRAD_NORM_RTOL = 1e-2
+
+
+def grad_norms(n_layers: int, width: dict, dtype: str,
+               device: str = "cpu") -> tuple:
+    """(reference, port) global norm of the gradient of the train loss
+    (``cross_entropy`` with its z-loss) on the same numpy weights and
+    tokens (one row of PROMPT)."""
+    from repro.models.layers import cross_entropy as jcross_entropy
+    from repro_torch.models.base import leaves_with_paths
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.train.steps import _unflatten
+
+    kw = dict(width, n_layers=n_layers, dtype=dtype)
+    jcfg = dataclasses.replace(jget_config(ARCH), **kw)
+    cfg = dataclasses.replace(get_config(ARCH), **kw)
+    jm, m = jbuild_model(jcfg), build_model(cfg)
+    weights = numpy_params(jm.param_specs(), seed=1)
+    toks = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (1, PROMPT + 1)).astype(np.int32)
+
+    def jloss(p):
+        logits = jm.forward(p, jnp.asarray(toks[:, :-1]), JDist(),
+                            mode="train")[0]
+        return jcross_entropy(logits, jnp.asarray(toks[:, 1:]))
+
+    jgrads = jax.jit(jax.grad(jloss))(jax.tree.map(jnp.asarray, weights))
+    ref = float(np.sqrt(sum(np.sum(np.square(np.asarray(g, np.float64)))
+                            for g in jax.tree.leaves(jgrads))))
+    paths, leaves = zip(*leaves_with_paths(
+        params_from_numpy(weights, m.param_specs(), device)))
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    t = torch.from_numpy(toks).to(device)
+    logits = m(_unflatten(paths, leaves), t[:, :-1], Dist(), mode="train")[0]
+    grads = torch.autograd.grad(cross_entropy(logits, t[:, 1:]), leaves)
+    port = float(torch.sqrt(sum(torch.sum(torch.square(g.double()))
+                                for g in grads)))
+    return ref, port
+
+
 def check_f32_parity(r: dict) -> None:
     allowed = max(PARITY_RTOL, FACTOR * r["ref"]["float32"])
     assert r["parity"] < allowed, (
@@ -158,6 +209,14 @@ def test_reference_amplifies_rounding_with_depth(runs):
         (shallow, deep)
 
 
+def test_gradient_norm_grows_with_depth_in_both():
+    (ref2, port2), (ref8, port8) = (grad_norms(n, QUARTER, "float32")
+                                    for n in (2, 8))
+    for ref, port in ((ref2, port2), (ref8, port8)):
+        assert abs(port - ref) <= GRAD_NORM_RTOL * ref, (ref, port)
+    assert ref8 > 100 * ref2, (ref2, ref8)
+
+
 @pytest.mark.cuda
 def test_full_size_qwen_on_the_card():
     """qwen1.5-0.5B at its published size: the reference on the CPU, the
@@ -182,3 +241,8 @@ if __name__ == "__main__":
               f"port f32 {r['port']['float32']:.3e} bf16 "
               f"{r['port']['bfloat16']:.3e}; port against reference, f32 "
               f"{r['parity']:.3e}", flush=True)
+    for n in (2, 8, 24):
+        for dtype in ("float32", "bfloat16"):
+            ref, port = grad_norms(n, QUARTER, dtype)
+            print(f"{n:2d} layers, {dtype}: gradient norm reference "
+                  f"{ref:.6g}, port {port:.6g}", flush=True)

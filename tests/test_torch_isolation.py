@@ -37,7 +37,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.sfa", "repro_torch.core.sfa_jax",
             "repro_torch.config", "repro_torch.sharding.rules",
             "repro_torch.serve.engine", "repro_torch.serve.steps",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.optim.api",
+            "repro_torch.optim.schedule", "repro_torch.train.steps",
+            "repro_torch.train.trainer", "repro_torch.checkpoint.manager",
+            "repro_torch.data.pipeline", "repro_torch.data.protein",
+            "repro_torch.launch.train"} <= set(mods)
     # the LM half: every model module and every architecture's config
     assert {f"repro_torch.models.{m}" for m in (
         "base", "layers", "attention", "moe", "ssm", "rglru", "transformer",

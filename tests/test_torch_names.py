@@ -25,7 +25,10 @@ EXCEPTIONS = {
 
 #: The LM half's modules ported so far, and the names of each that wait,
 #: with the ROADMAP item that brings them (queue 1, item 9c).
-DRY_RUN = "ROADMAP queue 1 item 9c: launch/{train,mesh,dryrun}"
+DRY_RUN = "ROADMAP queue 1 item 9c: launch/{mesh,dryrun}"
+#: Left out for good: ``optim.api._layerwise`` (a ``lax.map`` over the layer
+#: axis behind a flag that is off by default; ``update`` never calls it).
+LEFT_OUT = "left out: behind a flag that is off by default, never called"
 LM_MODULES = {
     "config": {},
     "configs": {},
@@ -42,6 +45,15 @@ LM_MODULES = {
     "serve.steps": {},
     "serve.engine": {},
     "launch.serve": {},
+    # the training slice
+    "optim.api": {"_layerwise": LEFT_OUT},
+    "optim.schedule": {},
+    "train.steps": {},
+    "train.trainer": {},
+    "checkpoint.manager": {},
+    "data.pipeline": {},
+    "data.protein": {},
+    "launch.train": {},
 }
 #: ``Model``'s methods that wait.
 MODEL_WAITING = {"param_structs": DRY_RUN, "cache_structs": DRY_RUN}
@@ -87,6 +99,7 @@ def test_lm_module_names_exist_in_the_port(module):
     ref = importlib.import_module(f"repro.{module}")
     port = importlib.import_module(f"repro_torch.{module}")
     waiting = LM_MODULES[module]
+    assert set(waiting) <= set(vars(ref)), sorted(set(waiting) - set(vars(ref)))
     missing = sorted(n for n in _defined_names(ref) - set(waiting)
                      if not hasattr(port, n))
     assert not missing, f"repro_torch.{module} lacks {missing}"
