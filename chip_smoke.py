@@ -111,19 +111,38 @@ Phases, in order (any failure raises and exits non-zero):
    qwen1.5-0.5B at its published size (464 M f32 parameters from a seeded
    ``torch.Generator``, AdamW as ``get_run(..., "train_4k")`` gives it,
    ``remat="full"``, seq 4,096, the global batch cut from 256 to 4 rows in
-   2 micro-batches) takes 6 steps through ``Trainer.fit`` on the synthetic
+   2 micro-batches) takes 5 steps through ``Trainer.fit`` on the synthetic
    source with a checkpoint every 3 steps: the first loss within 0.5 of
    ln(151,936), every loss and grad norm finite, the last loss below the
    first; step walls, train tokens/s, peak memory and the step's model
    FLOPs and TFLOP/s printed; a second trainer resumes from the step-3
-   checkpoint and runs to 6, its parameters and AdamW state equal to the
-   uninterrupted run's; then 2 steps on the protein source, whose PS00016
+   checkpoint and runs to 5, its parameters and AdamW state equal to the
+   uninterrupted run's; then 1 step on the protein source, whose PS00016
    SFA is built on the card (at least one ``fingerprint`` launch), its
    batches and labels equal to those of the corpus built on the CPU; then
    one train step of every reduced f32 model on the card and on the CPU
    from the same numpy weights (loss, grad norm, Adam's first moment and
-   the updated parameters within the CPU tests' bounds);
-11. with ``--profile`` only: trace one compile and one scan per budget, one
+   the updated parameters within the CPU tests' bounds) (5 steps and 1
+   protein step, not more, to leave phase 11 room in the script's time);
+11. the sharded LM path over DTensor, launch counts at 0 before it and
+   read after (it launches none of the seven kernels): (a) qwen1.5-0.5B at
+   its published size on a one-rank NCCL mesh (1, 1) ("data", "model"):
+   one train step at phase 10's shape against the one-device step on the
+   same weights (the largest difference of the loss and of the updated
+   parameters printed), and 16 greedy requests x 16 tokens through
+   ``ServeEngine`` whose tokens equal the one-device engine's; (b) two
+   ranks spawned on the one card, joined by gloo through host memory
+   (``hostgloo``), on the meshes (1, 2) and (2, 1): qwen1.5-0.5B at its
+   published width cut to 2 layers (f32, seq 1,024, 4 rows) for a forward
+   within 1e-4 of one device, one train step within the CPU tests' bounds
+   and a greedy decode with equal tokens; granite_moe_1b's MoE layer at
+   published width against ``_moe_local`` run on each data shard; a
+   checkpoint saved on (2, 1) restored bit-equal onto (1, 2) and onto one
+   device; each run's collectives printed; (c) ``launch.dryrun`` of
+   qwen1.5-0.5B x {train_4k, decode_32k} on a fake 16 x 16 mesh, in
+   subprocesses without the card while (a) and (b) run: FLOPs and
+   collectives present, the argument bytes those of the rules' shards;
+12. with ``--profile`` only: trace one compile and one scan per budget, one
    ``stream`` of the single-pattern phase, the speculative phase's repeat
    scans beside enumeration's and its stream, prefill and decode steps of
    the LM phase's qwen1.5-0.5B parameters and one qwen train step, with
@@ -2207,10 +2226,10 @@ def lm_serve_path(torch, ops, dev, card: str) -> tuple:
 #: qwen1.5-0.5B trains at its published size on seq 4,096 with AdamW as
 #: ``get_run(LM_ARCH, "train_4k")`` gives it (2 micro-batches); the global
 #: batch is cut from 256 rows to 4: 16,384 tokens a step.
-LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 6, 3
-LM_PROTEIN_STEPS = 2
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_EVERY = 4, 5, 3
+LM_PROTEIN_STEPS = 1
 #: The synthetic step whose batch is held out: evaluated before and after
-#: the steps and printed (not checked: the first 6 steps of the published
+#: the steps and printed (not checked: the first 5 steps of the published
 #: 100-step warmup take lr <= 1.5e-5, and the held-out loss does not move
 #: beyond batch noise; the training losses' fall is batch to batch).
 LM_HELD_OUT_STEP = 10 ** 6
@@ -2584,6 +2603,740 @@ def lm_train_path(torch, ops, dev, card: str) -> tuple:
                 launches=launches), trainer
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the sharded LM path (DTensor over a DeviceMesh)
+# --------------------------------------------------------------------------
+
+#: (a) one NCCL rank: the serving requests' new tokens (prompts as phase 9).
+LM_SHARDED_NEW = 16
+#: (b) two ranks: qwen1.5-0.5B at its published width cut to this many
+#: layers (so the gloo traffic through host memory fits the time limit),
+#: seq 1,024, 4 rows; its decode check's prompts and new tokens; the f32
+#: forward's bound against the one-device forward (relative to its largest
+#: logit); at most this long for both ranks.
+LM_TWO_LAYERS, LM_TWO_SEQ, LM_TWO_ROWS = 2, 1024, 4
+LM_TWO_PROMPTS, LM_TWO_NEW = (9, 14), 4
+LM_TWO_FWD_TOL = 1e-4
+LM_TWO_TIMEOUT_S = 600
+#: The MoE layer's bound against _moe_local run on each data shard (f32).
+LM_MOE_TOL = 1e-5
+#: A sharded train step's Adam state against one device's: the CPU tests'
+#: bound for optimizer state (tests/test_torch_train.py: twice the
+#: gradients' 1e-4 of a leaf's largest entry).
+LM_MOMENT_TOL = 2 * TRAIN_GRAD_TOL
+#: (c) the dry-run's cells of qwen1.5-0.5B.
+LM_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+
+
+def host_gloo_backend():
+    """Register the ``"hostgloo"`` process-group backend: gloo for CUDA
+    tensors through host memory. Gloo's functional collectives (the ones
+    DTensor issues) fail on CUDA tensors in the card's PyTorch build, and
+    NCCL refuses two ranks on one card; this backend copies each operand to
+    the host, runs gloo's CPU collective there, and copies the result back.
+    Every collective DTensor and the port use is covered."""
+    import torch
+    import torch.distributed as dist
+    from torch._C._distributed_c10d import _create_work_from_future
+    from torch.futures import Future
+
+    if "hostgloo" in dist.Backend.backend_list:
+        return
+
+    def done(result):
+        fut = Future()
+        fut.set_result(result)
+        return _create_work_from_future(fut)
+
+    class HostGloo(dist.ProcessGroup):
+        # Operands go to the host as copies (``.cpu()`` of a CPU tensor is
+        # the tensor itself, and gloo works in place).
+
+        def __init__(self, store, rank, size, timeout):
+            super().__init__(rank, size)
+            self._rank, self._size = rank, size
+            self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
+
+        def size(self):
+            return self._size
+
+        @property
+        def group_name(self):           # the name c10d registered it by
+            return dist.distributed_c10d._world.pg_names[self]
+
+        pg_name = group_name
+
+        def getBackendName(self):
+            return "hostgloo"
+
+        def _reduce(self, hs, op):
+            o = dist.AllreduceOptions()
+            o.reduceOp = op
+            self._gloo.allreduce(hs, o).wait()
+
+        def allreduce(self, tensors, opts=None):
+            hs = [t.to("cpu", copy=True) for t in tensors]
+            self._reduce(hs, opts.reduceOp if opts else dist.ReduceOp.SUM)
+            for t, h in zip(tensors, hs):
+                t.copy_(h)
+            return done(tensors)
+
+        def allreduce_coalesced(self, tensors, opts=None):
+            return self.allreduce(tensors, opts)
+
+        def _gather(self, t):
+            parts = [torch.empty(t.shape, dtype=t.dtype)
+                     for _ in range(self._size)]
+            self._gloo.allgather([parts], [t.to("cpu", copy=True)]).wait()
+            return parts
+
+        def allgather(self, outputs, inputs, opts=None):
+            for outs, t in zip(outputs, inputs):
+                for o, h in zip(outs, self._gather(t)):
+                    o.copy_(h)
+            return done(outputs)
+
+        def all_gather_single(self, output, inp, opts=None):
+            output.copy_(torch.cat(self._gather(inp)).reshape(output.shape))
+            return done(output)
+
+        _allgather_base = all_gather_single
+
+        def all_gather_single_coalesced(self, outputs, inputs, opts=None):
+            for o, i in zip(outputs, inputs):
+                self.all_gather_single(o, i)
+            return done(outputs)
+
+        allgather_into_tensor_coalesced = all_gather_single_coalesced
+
+        def reduce_scatter_single(self, output, inp, opts=None):
+            h = inp.to("cpu", copy=True)
+            self._reduce([h], opts.reduceOp if opts else dist.ReduceOp.SUM)
+            output.copy_(h.chunk(self._size)[self._rank].reshape(
+                output.shape))
+            return done(output)
+
+        _reduce_scatter_base = reduce_scatter_single
+
+        def reduce_scatter_single_coalesced(self, outputs, inputs,
+                                            opts=None):
+            for o, i in zip(outputs, inputs):
+                self.reduce_scatter_single(o, i, opts)
+            return done(outputs)
+
+        reduce_scatter_tensor_coalesced = reduce_scatter_single_coalesced
+
+        def reduce_scatter(self, outputs, inputs, opts=None):
+            for o, parts in zip(outputs, inputs):
+                self.reduce_scatter_single(o, torch.stack(parts), opts)
+            return done(outputs)
+
+        def all_to_all_single(self, output, inp, out_splits, in_splits,
+                              opts=None):
+            if len(set(out_splits or [0])) > 1 or len(set(in_splits or [0])) > 1:
+                raise NotImplementedError("hostgloo: uneven all-to-all")
+            mine = [p.chunk(self._size)[self._rank]
+                    for p in self._gather(inp)]
+            output.copy_(torch.cat(mine).reshape(output.shape))
+            return done(output)
+
+        alltoall_base = all_to_all_single
+
+        def broadcast(self, tensors, opts=None):
+            hs = [t.to("cpu", copy=True) for t in tensors]
+            o = dist.BroadcastOptions()
+            o.rootRank = opts.rootRank if opts else 0
+            self._gloo.broadcast(hs, o).wait()
+            for t, h in zip(tensors, hs):
+                t.copy_(h)
+            return done(tensors)
+
+        def scatter(self, outputs, inputs, opts=None):
+            root = opts.rootRank if opts else 0
+            for r in range(self._size):
+                piece = (inputs[0][r].to("cpu", copy=True) if self._rank == root
+                         else torch.empty(outputs[0].shape,
+                                          dtype=outputs[0].dtype))
+                o = dist.BroadcastOptions()
+                o.rootRank = root
+                self._gloo.broadcast([piece], o).wait()
+                if r == self._rank:
+                    outputs[0].copy_(piece)
+            return done(outputs)
+
+        def barrier(self, opts=None):
+            self._gloo.barrier().wait()
+            return done(None)
+
+    def create(store, rank, size, timeout):
+        return HostGloo(store, rank, size, timeout)
+
+    dist.Backend.register_backend("hostgloo", create, devices=["cpu", "cuda"])
+
+
+def sharded_rules(mesh, cfg):
+    from repro_torch.sharding.rules import Dist, Rules
+
+    return Dist.for_mesh(mesh, Rules(mesh_axes=tuple(
+        mesh.mesh_dim_names)).with_overrides(cfg.sharding_overrides))
+
+
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def walled(torch, dev, fn):
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def full_tree(tree):
+    """``tree`` with each DTensor's whole value (a collective: every rank
+    calls this)."""
+    from repro_torch.models.base import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, tree)
+
+
+def tree_to(torch, tree, dev):
+    from repro_torch.models.base import tree_map
+
+    return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+
+def step_against(torch, want, got, lr: float) -> dict:
+    """One train step's (params, state, metrics) against another's: the
+    loss and grad norm relative; Adam's first moment relative to each
+    leaf's largest entry (held to LM_MOMENT_TOL); each updated parameter's
+    largest difference over its bound (TRAIN_PARAM_TOL of its largest
+    entry, or 2 lr where Adam's first moment is within TRAIN_GRAD_TOL of 0:
+    a sign flip of a near-zero gradient)."""
+    from repro_torch.models.base import leaves_with_paths
+
+    (p_w, s_w, m_w), (p_g, s_g, m_g) = want, got
+    s_w, s_g, p_gf = (dict(leaves_with_paths(full_tree(t)))
+                      for t in (s_w, s_g, p_g))
+    over = 0.0
+    for q, a in leaves_with_paths(p_w):
+        m = s_w[q + ("m",)].abs()
+        tol = TRAIN_PARAM_TOL * a.abs().max() + torch.where(
+            m <= TRAIN_GRAD_TOL * m.max(), 2 * lr, 0.0)
+        over = max(over, float(((p_gf[q] - a).abs() / tol).max()))
+    moment = max(lm_rel(s_w[q], s_g[q]) for q in s_w if q[-1] == "m")
+    return dict(loss=abs(float(m_w["loss"]) - float(m_g["loss"]))
+                / abs(float(m_w["loss"])),
+                grad_norm=abs(float(m_w["grad_norm"])
+                              - float(m_g["grad_norm"]))
+                / float(m_w["grad_norm"]),
+                moment=moment, param_over_bound=over)
+
+
+def sharded_one_rank(torch, dev, card: str) -> dict:
+    """(a) qwen1.5-0.5B at its published size on a one-rank NCCL mesh (1,
+    1) (the world of phase 8): one train step at phase 10's shape held to
+    the one-device step on the same weights, and LM_REQUESTS greedy
+    requests through the engine, their tokens the one-device engine's."""
+    import torch.distributed as dist
+
+    from repro_torch.config import HOST_MESH, RunConfig, ShapeConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import synthetic_batch, to_mesh
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models.base import init_params
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.rules import Dist
+    from repro_torch.train.steps import make_train_step
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          "lm_sharded (a): a one-rank NCCL world")
+    run = lm_train_run(tempfile.gettempdir())
+    cfg = run.model
+    d = sharded_rules(mesh, cfg)
+    specs = build_model(cfg).param_specs()
+    full = init_params(specs, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=run.shape.seq_len,
+                   global_batch=run.shape.global_batch, seed=run.seed), 0
+    ).items()}
+    out, walls = {}, {}
+    for name, dd in (("one device", Dist()), ("mesh", d)):
+        model = build_model(cfg)
+        params = model.load(tree_to(torch, full, dev), dd)
+        step, opt = make_train_step(model, run, dd)
+        state = opt.init(params, specs, dd)
+        b = {k: to_mesh(v, dd) for k, v in batch.items()}
+        out[name], walls[name] = walled(torch, dev, lambda: step(
+            params, state, 1, b))
+        del model
+        free_cuda(torch)
+    lr = float(out["one device"][2]["lr"])
+    errs = step_against(torch, out["one device"], out["mesh"], lr)
+    check(errs["loss"] <= TRAIN_LOSS_TOL and errs["grad_norm"] <= TRAIN_NORM_TOL
+          and errs["moment"] <= LM_MOMENT_TOL
+          and errs["param_over_bound"] <= 1.0,
+          f"lm_sharded (a): the mesh's train step against one device {errs}")
+    from repro_torch.models.base import leaves_with_paths
+
+    diffs = {"loss": abs(float(out["one device"][2]["loss"])
+                         - float(out["mesh"][2]["loss"]))}
+    got = dict(leaves_with_paths(full_tree(out["mesh"][0])))
+    diffs["params"] = max(float((got[q] - a).abs().max()) for q, a in
+                          leaves_with_paths(out["one device"][0]))
+    del out
+    free_cuda(torch)
+    print(f"[lm_sharded] (a) {LM_ARCH} full size on a (1, 1) NCCL mesh, one "
+          f"train step (seq {run.shape.seq_len}, {run.shape.global_batch} "
+          f"rows, {run.micro_batches} micro-batches) against the one-device "
+          f"step on the same weights: largest difference loss "
+          f"{diffs['loss']:.3e}, updated parameters {diffs['params']:.3e} "
+          f"(relative loss {errs['loss']:.2e}, grad norm "
+          f"{errs['grad_norm']:.2e}, Adam's moment {errs['moment']:.2e}, "
+          f"parameters at {errs['param_over_bound']:.2f} of their bound); "
+          f"step wall {walls['mesh']:.2f} s on the mesh, "
+          f"{walls['one device']:.2f} s on one device ({card})", flush=True)
+
+    serve_run = RunConfig(model=cfg, shape=ShapeConfig(
+        "serve", LM_MAX_LEN, LM_SLOTS, "decode"), mesh=HOST_MESH)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    tokens, serve_walls = {}, {}
+    for name, dd in (("one device", Dist()), ("mesh", d)):
+        model = build_model(cfg)
+        model.load(tree_to(torch, full, dev), dd)
+        eng = ServeEngine(model, serve_run, dd, None, n_slots=LM_SLOTS,
+                          max_len=LM_MAX_LEN)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, max_new_tokens=LM_SHARDED_NEW,
+                               rid=i))
+        done, serve_walls[name] = walled(torch, dev, eng.run_until_done)
+        tokens[name] = {r.rid: list(r.out_tokens) for r in done}
+        del model, eng
+        free_cuda(torch)
+    same = sum(tokens["mesh"].get(i) == t
+               for i, t in tokens["one device"].items())
+    check(same == LM_REQUESTS, f"lm_sharded (a): {same} of {LM_REQUESTS} "
+          f"requests' tokens equal the one-device engine's")
+    print(f"[lm_sharded] (a) {LM_REQUESTS} greedy requests x "
+          f"{LM_SHARDED_NEW} tokens through the engine on the mesh: all "
+          f"{same} equal the one-device engine's tokens; wall "
+          f"{serve_walls['mesh']:.2f} s on the mesh, "
+          f"{serve_walls['one device']:.2f} s on one device ({card})",
+          flush=True)
+    return dict(train_diffs=diffs, train_errs=errs, train_walls=walls,
+                serve_walls=serve_walls, serve_equal=same)
+
+
+def two_rank_cfgs():
+    """(qwen cut to LM_TWO_LAYERS, granite cut to one pattern cycle), both
+    at their published widths, in f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    qwen = get_config(LM_ARCH)
+    granite = get_config("granite_moe_1b")
+    return (dataclasses.replace(qwen, n_layers=LM_TWO_LAYERS,
+                                dtype="float32"),
+            dataclasses.replace(granite, n_layers=len(granite.layer_pattern),
+                                dtype="float32"))
+
+
+def two_rank_inputs(cfg) -> dict:
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(1, cfg.vocab_size, (LM_TWO_ROWS, LM_TWO_SEQ + 1))
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in LM_TWO_PROMPTS]
+    return toks.astype(np.int32), prompts
+
+
+def per_shard_moe(torch, n_shards: int):
+    """``moe_layer`` as ``n_shards`` data shards run it: ``_moe_local`` on
+    each shard's tokens (its own capacity), the load-balance losses
+    averaged."""
+    from repro_torch.models import moe
+
+    def layer(params, x, cfg, rules, mesh=None, data_axes=(),
+              model_axis=None):
+        B, S, dm = x.shape
+        parts = x.reshape(n_shards, B * S // n_shards, dm)
+        outs = [moe._moe_local(params["router"], params["w_gate"],
+                               params["w_up"], params["w_down"], p, cfg)
+                for p in parts]
+        return (torch.cat([o[0] for o in outs]).reshape(B, S, dm),
+                torch.stack([o[1] for o in outs]).mean())
+
+    return layer
+
+
+def sharded_worker(rank: int, workdir: str, device: str = "cuda") -> None:
+    """One of two ranks on the one card ("hostgloo": gloo through host
+    memory), on the meshes (1, 2) and (2, 1): qwen's f32 forward, one train
+    step and a greedy decode, each held by rank 0 to the one-device run;
+    granite's sharded MoE layer held to ``_moe_local`` on each data shard;
+    a checkpoint saved on (2, 1) restored onto (1, 2) and onto one device.
+    Each run's collectives are recorded (``analysis.trace``). Every rank
+    makes the same collectives in the same order; rank 0 writes
+    ``results.json``."""
+    import datetime
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.analysis.trace import trace_step
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import HOST_MESH, RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import local_rows, to_mesh
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models.base import distribute_params, leaves_with_paths
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_layer, moe_specs
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding.rules import Dist
+    from repro_torch.train.steps import make_train_step
+
+    host_gloo_backend()
+    dist.init_process_group(
+        "hostgloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=LM_TWO_TIMEOUT_S))
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        "cpu")
+    qcfg, gcfg = two_rank_cfgs()
+    toks, prompts = two_rank_inputs(qcfg)
+    tok_t = torch.from_numpy(toks)
+    full_batch = {"tokens": tok_t[:, :-1].contiguous().to(dev),
+                  "labels": tok_t[:, 1:].contiguous().to(dev)}
+    qspecs = build_model(qcfg).param_specs()
+    qweights = numpy_weights(torch, qspecs, SEED)
+    qrun = RunConfig(model=qcfg, shape=ShapeConfig(
+        "t", LM_TWO_SEQ, LM_TWO_ROWS, "train"), mesh=HOST_MESH,
+        optimizer=lm_train_run(workdir).optimizer, micro_batches=2)
+    srun = RunConfig(model=qcfg, shape=ShapeConfig("s", 64, 2, "decode"),
+                     mesh=HOST_MESH)
+    res, colls, walls = {}, {}, {}
+
+    def traced(key, fn):
+        (out, st), walls[key] = walled(torch, dev, lambda: trace_step(fn))
+        colls[key] = dict(count=st.coll_count,
+                          operand_bytes=st.coll_operand_bytes,
+                          per_op={k: v["count"] for k, v in
+                                  st.per_op.items()})
+        return out
+
+    def one_device():                   # rank 0's one-device twin
+        m = build_model(qcfg)
+        return m, m.load(tree_to(torch, qweights, dev))
+
+    def serve(model, dd, params):
+        eng = ServeEngine(model, srun, dd, params, n_slots=2, max_len=64)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, max_new_tokens=LM_TWO_NEW, rid=i))
+        return {r.rid: list(r.out_tokens) for r in eng.run_until_done()}
+
+    saved = None
+    for mname, shape in (("1x2", (1, 2)), ("2x1", (2, 1))):
+        mesh = make_mesh(shape, ("data", "model"), device=device)
+        d = sharded_rules(mesh, qcfg)
+        start, n = local_rows(d, LM_TWO_ROWS)
+        rows = {k: to_mesh(v[start:start + n], d)
+                for k, v in full_batch.items()}
+        model = build_model(qcfg)
+        model.load(tree_to(torch, qweights, dev), d)
+        with torch.no_grad():
+            logits = full_tree(traced(f"{mname} forward", lambda: model.forward(
+                None, rows["tokens"], d)[0]))
+        if rank == 0:
+            m1, p1 = one_device()
+            with torch.no_grad():
+                want = m1.forward(p1, full_batch["tokens"], Dist())[0]
+            res[f"{mname} forward"] = lm_rel(want, logits)
+            del m1, p1, want
+        del logits
+
+        params = model.load(tree_to(torch, qweights, dev), d)
+        step, opt = make_train_step(model, qrun, d)
+        state = opt.init(params, qspecs, d)
+        got = traced(f"{mname} train step", lambda: step(
+            params, state, 1, rows))
+        got_full = (full_tree(got[0]), full_tree(got[1]), got[2])
+        if rank == 0:
+            m1, p1 = one_device()
+            s1, o1 = make_train_step(m1, qrun, Dist())
+            want = s1(p1, o1.init(p1, qspecs), 1, full_batch)
+            res[f"{mname} train step"] = step_against(
+                torch, want, got_full, float(want[2]["lr"]))
+            del m1, p1, want
+        if mname == "2x1":                      # the checkpoint's state
+            CheckpointManager(os.path.join(workdir, "ckpt"),
+                              async_save=False).save(
+                1, {"params": got[0], "opt": got[1]})
+            saved = dict(leaves_with_paths(
+                {"params": got_full[0], "opt": got_full[1]}))
+        del got, got_full, params, state
+
+        params = model.load(tree_to(torch, qweights, dev), d)
+        got = traced(f"{mname} decode", lambda: serve(model, d, params))
+        if rank == 0:
+            m1, p1 = one_device()
+            res[f"{mname} decode"] = dict(
+                equal=got == serve(m1, Dist(), p1), tokens=got)
+            del m1, p1
+        del model, params
+
+        gd = sharded_rules(mesh, gcfg)
+        rng = np.random.default_rng(SEED + 1)
+        x = torch.from_numpy(rng.normal(size=(
+            LM_TWO_ROWS, LM_TWO_SEQ, gcfg.d_model)).astype(np.float32)).to(dev)
+        lw = numpy_weights(torch, moe_specs(gcfg), SEED + 1)
+        lp = distribute_params(lw, moe_specs(gcfg), gd.rules, mesh)
+        xd = distribute_tensor(x, mesh, gd.rules.placements(
+            mesh, "batch", "seq_act", "embed_act"))
+        with torch.no_grad():
+            y, aux = traced(f"{mname} moe layer", lambda: moe_layer(
+                lp, xd, gcfg, gd.rules, mesh=mesh, data_axes=gd.data_axes,
+                model_axis=gd.model_axis))
+            y, aux = y.full_tensor(), float(aux.full_tensor())
+            if rank == 0:
+                wy, waux = per_shard_moe(torch, shape[0])(
+                    tree_to(torch, lw, dev), x, gcfg, None)
+                res[f"{mname} moe layer"] = dict(
+                    y=lm_rel(wy, y), aux=abs(float(waux) - aux) / float(waux))
+        del lp, xd, y
+
+    # the (2, 1) checkpoint onto (1, 2), and onto one device
+    mesh12 = make_mesh((1, 2), ("data", "model"), device=device)
+    d12 = sharded_rules(mesh12, qcfg)
+    opt_specs = make_train_step(build_model(qcfg), qrun, d12)[1].state_specs(
+        qspecs)
+    like = {"params": qspecs, "opt": opt_specs}
+    mgr = CheckpointManager(os.path.join(workdir, "ckpt"))
+    r12 = mgr.restore(like, d12.shardings(like))[1]
+    on12 = dict(leaves_with_paths(full_tree(r12)))
+    if rank == 0:
+        on1 = dict(leaves_with_paths(mgr.restore(tree_to(
+            torch, {"params": qweights, "opt": numpy_weights(
+                torch, opt_specs, SEED)}, dev))[1]))
+        res["checkpoint"] = dict(
+            onto_1x2=all(torch.equal(on12[q], a) for q, a in saved.items()),
+            onto_one_device=all(torch.equal(on1[q], a)
+                                for q, a in saved.items()),
+            leaves=len(saved),
+            placements_1x2=sorted({str(t.placements) for _, t in
+                                   leaves_with_paths(r12)}))
+        with open(os.path.join(workdir, "results.json"), "w") as f:
+            json.dump(dict(results=res, collectives=colls, walls=walls), f,
+                      default=float)
+    dist.destroy_process_group()
+
+
+def sharded_two_ranks(torch, card: str, device: str = "cuda") -> dict:
+    """(b) both ranks spawned on the one card, held to their bounds."""
+    import multiprocessing
+
+    with tempfile.TemporaryDirectory() as workdir:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=sharded_worker, args=(r, workdir, device))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + LM_TWO_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.terminate()
+            p.join(timeout=10)
+        check(not hung and [p.exitcode for p in procs] == [0, 0],
+              f"lm_sharded (b): two ranks' exit codes "
+              f"{[p.exitcode for p in procs]}")
+        with open(os.path.join(workdir, "results.json")) as f:
+            out = json.load(f)
+    res, colls, walls = out["results"], out["collectives"], out["walls"]
+    for m in ("1x2", "2x1"):
+        fwd, tr = res[f"{m} forward"], res[f"{m} train step"]
+        check(fwd <= LM_TWO_FWD_TOL,
+              f"lm_sharded (b) {m}: f32 forward {fwd:.3e} from one device")
+        check(tr["loss"] <= TRAIN_LOSS_TOL and tr["grad_norm"] <= TRAIN_NORM_TOL
+              and tr["moment"] <= LM_MOMENT_TOL
+              and tr["param_over_bound"] <= 1.0,
+              f"lm_sharded (b) {m}: train step against one device {tr}")
+        check(res[f"{m} decode"]["equal"],
+              f"lm_sharded (b) {m}: decode tokens against one device")
+        moe = res[f"{m} moe layer"]
+        check(moe["y"] <= LM_MOE_TOL and moe["aux"] <= LM_MOE_TOL,
+              f"lm_sharded (b) {m}: MoE layer against each data shard's "
+              f"_moe_local {moe}")
+        print(f"[lm_sharded] (b) {m} mesh, two ranks on one card through "
+              f"gloo ({LM_ARCH} at published width cut to {LM_TWO_LAYERS} "
+              f"layers, f32, seq {LM_TWO_SEQ}, {LM_TWO_ROWS} rows): forward "
+              f"{fwd:.2e} from one device (bound {LM_TWO_FWD_TOL}); train "
+              f"step loss {tr['loss']:.2e}, grad norm {tr['grad_norm']:.2e}, "
+              f"moment {tr['moment']:.2e} (bound {LM_MOMENT_TOL}), parameters at "
+              f"{tr['param_over_bound']:.2f} of their bound; decode tokens "
+              f"equal; granite_moe_1b's MoE layer (published width, "
+              f"{LM_TWO_ROWS} x {LM_TWO_SEQ} tokens) {moe['y']:.2e} / aux "
+              f"{moe['aux']:.2e} from each data shard's _moe_local (bound "
+              f"{LM_MOE_TOL})", flush=True)
+        for run in ("forward", "train step", "decode", "moe layer"):
+            c = colls[f"{m} {run}"]
+            print(f"[lm_sharded] (b) {m} {run}: {c['count']} collectives, "
+                  f"{c['operand_bytes'] / 1e6:.2f} MB operands a rank "
+                  f"{c['per_op']}; wall {walls[f'{m} {run}']:.2f} s",
+                  flush=True)
+    ck = res["checkpoint"]
+    check(ck["onto_1x2"] and ck["onto_one_device"]
+          and any("Shard" in p for p in ck["placements_1x2"]),
+          f"lm_sharded (b): checkpoint from (2, 1) {ck}")
+    print(f"[lm_sharded] (b) a checkpoint saved on (2, 1) ({ck['leaves']} "
+          f"leaves) restores bit-equal onto (1, 2) (placements "
+          f"{ck['placements_1x2']}) and onto one device; both ranks spawn "
+          f"to exit {wall:.1f} s ({card})", flush=True)
+    return dict(results=res, collectives=colls, walls=walls, wall_s=wall)
+
+
+def rank0_local_bytes(specs, rules, names, sizes) -> int:
+    """Rank 0's bytes of a ParamSpec tree on a mesh of ``sizes`` (axes
+    ``names``), from the rules alone: each sharded dim split as DTensor
+    splits it (``torch.chunk``: rank 0 holds the first, largest piece)."""
+    import types
+
+    from repro_torch.models.base import leaves_with_paths, torch_dtype
+
+    mesh = types.SimpleNamespace(mesh_dim_names=names)
+    total = 0
+    for _, s in leaves_with_paths(specs):
+        shape = list(s.shape)
+        for i, p in enumerate(rules.placements(mesh, *s.logical)):
+            if hasattr(p, "dim"):
+                shape[p.dim] = -(-shape[p.dim] // sizes[i])
+        total += int(np.prod(shape)) * torch_dtype(s.dtype).itemsize
+    return total
+
+
+def start_dryrun(tmp: str) -> dict:
+    """(c), started: ``launch.dryrun`` for qwen1.5-0.5B's LM_DRYRUN_SHAPES
+    on the fake 16 x 16 mesh into ``tmp``, one process a cell, without the
+    card (``CUDA_VISIBLE_DEVICES`` empty) -> {shape: process}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.path.join(here, "src")}
+    procs = {}
+    for s in LM_DRYRUN_SHAPES:                  # logs to files: not read
+        with open(os.path.join(tmp, f"{s}.log"), "w") as log:   # meanwhile
+            procs[s] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 LM_ARCH, "--shape", s, "--out", tmp], env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+    return procs
+
+
+def sharded_dryrun(torch, card: str, procs: dict, tmp: str,
+                   t0: float) -> dict:
+    """(c), finished: each cell's FLOPs and collectives, and its argument
+    bytes equal to rank 0's shards under the rules."""
+    from repro_torch.configs import get_run
+    from repro_torch.launch.dryrun import cell_rules, cell_file_name
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.launch.mesh import mesh_config
+
+    names, sizes = ("data", "model"), (16, 16)
+    out = {}
+    for p in procs.values():
+        p.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    for s, p in procs.items():
+        with open(os.path.join(tmp, f"{s}.log")) as f:
+            log = f.read()
+        check(p.returncode == 0, f"lm_sharded (c): dryrun {s} failed:\n"
+              f"{log[-3000:]}")
+        with open(os.path.join(tmp, cell_file_name(LM_ARCH, s, False))) as f:
+            out[s] = json.load(f)
+    for s, cell in out.items():
+        run = get_run(LM_ARCH, s, mesh_config())
+        model = build_model(run.model)
+        rules = cell_rules(run.model, run.shape, types_mesh(names, sizes))
+        specs = {"params": model.param_specs()}
+        if run.shape.kind == "train":
+            specs["opt_state"] = build_optimizer(run.optimizer).state_specs(
+                model.param_specs())
+        else:
+            specs["cache"] = model.cache_specs(
+                run.shape.global_batch, run.max_cache_len or run.shape.seq_len)
+        want = rank0_local_bytes(specs, rules, names, sizes)
+        arg = cell["memory"]["argument_bytes"]
+        got = sum(v for k, v in arg.items() if k != "inputs")
+        st, roof = cell["trace_stats"], cell["roofline"]
+        check(st["flops"] > 0 and st["coll_count"] > 0,
+              f"lm_sharded (c) {s}: FLOPs and collectives {st}")
+        check(got == want, f"lm_sharded (c) {s}: argument bytes {got} "
+              f"against the rules' local shards {want}")
+        print(f"[lm_sharded] (c) dry-run {LM_ARCH} x {s} on a fake 16 x 16 "
+              f"mesh (no card): {cell['memory']['argument_gb']:.3f} GB a "
+              f"device (fits 80 GB: {cell['memory']['fits_80gb']}), "
+              f"{st['flops']:.3e} FLOPs, {st['coll_count']} collectives, "
+              f"{st['coll_operand_bytes'] / 1e9:.3f} GB collective operands "
+              f"a device; roofline estimate (H100 constants, not measured) "
+              f"compute {roof['compute_s']:.3e} s, memory "
+              f"{roof['memory_s']:.3e} s, collective "
+              f"{roof['collective_s']:.3e} s: {roof['dominant']}-bound; "
+              f"traced at {cell['traced_groups']} of {cell['groups']} "
+              f"groups in {cell['trace_s']} s", flush=True)
+    print(f"[lm_sharded] (c) both cells done {wall:.1f} s after their start "
+          f"(beside (a) and (b)) ({card})", flush=True)
+    return dict(cells=out, wall_s=wall)
+
+
+def types_mesh(names, sizes):
+    """A stand-in with the mesh's axis names and sizes (what the rules and
+    ``cell_rules`` read)."""
+    import types
+
+    return types.SimpleNamespace(mesh_dim_names=names,
+                                 size=lambda i=None: (
+                                     int(np.prod(sizes)) if i is None
+                                     else sizes[i]))
+
+
+def lm_sharded_path(torch, ops, dev, card: str) -> dict:
+    """Phase 11: the sharded LM path, launch counts at 0 before its runs and
+    read after (it launches none of the seven kernels)."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryrun(tmp)           # (c) on the host meanwhile
+        try:
+            one = sharded_one_rank(torch, dev, card)
+            two = sharded_two_ranks(torch, card)
+            dry = sharded_dryrun(torch, card, procs, tmp, t0)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+    launches = {**ops.launches, **ops.form_launches}
+    check(not any(launches.values()),
+          f"the sharded LM phase launched SFA kernels: {launches}")
+    wall = time.perf_counter() - t0
+    print(f"[lm_sharded] phase wall {wall:.1f} s; kernel launches "
+          f"{launches}", flush=True)
+    return dict(one_rank=one, two_ranks=two, dryrun=dry, wall_s=wall,
+                launches=launches)
+
+
 def trace(torch, label: str, fn, n_top: int = 12, groups=None) -> dict:
     """One traced run of ``fn`` under ``torch.profiler``: its wall, the
     device's busy time, device time by kernel and host time by operation
@@ -2860,6 +3613,7 @@ def main(argv=None) -> int:
     two_res = two_rank_path(torch, corpus, main_res)
     lm_res, lm_model, lm_params = lm_serve_path(torch, ops, dev, card)
     train_res, trainer = lm_train_path(torch, ops, dev, card)
+    sharded_res = lm_sharded_path(torch, ops, dev, card)
     prof_res = None
     if args.profile:
         from repro_torch import obs
@@ -2896,7 +3650,8 @@ def main(argv=None) -> int:
                     "distributed": dist_res["launches"][name],
                     "distributed, 2 ranks": two_res["launches"][name],
                     "lm_serve": lm_res["launches"][name],
-                    "lm_train": train_res["launches"][name]}
+                    "lm_train": train_res["launches"][name],
+                    "lm_sharded": sharded_res["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -2935,6 +3690,7 @@ def main(argv=None) -> int:
             distributed_2_ranks=two_res,
             lm_serve=lm_res,
             lm_train=train_res,
+            lm_sharded=sharded_res,
             profile=prof_res,
         )
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -18,8 +18,15 @@ save never shadows a good checkpoint.
 * **keep-N** garbage collection.
 
 ``restore_tree`` puts each leaf on the device of the matching leaf of the
-``like`` tree (a numpy leaf restores as numpy). Restoring onto a sharding
-waits for the sharded LM path: a non-``None`` ``shardings`` raises.
+``like`` tree (a numpy leaf restores as numpy), or, given ``shardings`` (a
+tree of ``sharding.rules.Sharding``, ``Dist.shardings``), distributes it
+onto its mesh and placements: a checkpoint written on one mesh restores
+onto another, or onto one device (elastic).
+
+On a mesh (a tree with ``DTensor`` leaves) every rank calls ``save``: each
+joins the ``full_tensor()`` gathers, and rank 0 alone writes, in the same
+format; ``wait`` ends in a barrier, so every rank sees the checkpoint once
+it returns.
 """
 
 from __future__ import annotations
@@ -33,8 +40,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from ..sharding.rules import SHARDED_LM_ITEM
+import torch.distributed as dist
 
 _SEP = "__"
 
@@ -67,8 +73,17 @@ def _unflatten_like(tree, leaves):
     return next(leaves)
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host_array(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` (never a view of it)."""
+    """A host copy of ``leaf`` (never a view of it); a ``DTensor``'s whole
+    value (a collective: every rank calls this)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -108,28 +123,36 @@ def latest_step(ckpt_dir: Path) -> int | None:
     return max(steps) if steps else None
 
 
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:   # bf16 records
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _as_like(arr: np.ndarray, like):
     if not isinstance(like, torch.Tensor):
         return arr
-    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:   # bf16 records
-        return torch.from_numpy(arr.view(np.int16)).view(
-            torch.bfloat16).to(like.device)
-    return torch.from_numpy(arr).to(like.device)
+    return _to_torch(arr).to(like.device)
 
 
 def restore_tree(ckpt_dir: Path, step: int, like_tree, shardings=None) -> tuple:
-    """Restore into the structure of ``like_tree`` -> (tree, extra)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            f"restoring onto shardings waits for {SHARDED_LM_ITEM}")
+    """Restore into the structure of ``like_tree`` -> (tree, extra). With
+    ``shardings`` (a tree of ``Sharding``s shaped like ``like_tree``), each
+    leaf is distributed onto its
+    mesh and placements (every rank of the mesh calls this)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((d / "meta.json").read_text())
+    flat = _flatten_with_paths(like_tree)
+    targets = ([t for _, t in _flatten_with_paths(shardings)]
+               if shardings is not None else [None] * len(flat))
+    assert len(targets) == len(flat), (len(targets), len(flat))
     leaves = []
-    for name, like in _flatten_with_paths(like_tree):
+    for (name, like), target in zip(flat, targets):
         arr = np.load(d / f"{name}.npy")
         want_shape = tuple(like.shape)
         assert tuple(arr.shape) == want_shape, (name, arr.shape, want_shape)
-        leaves.append(_as_like(arr, like))
+        leaves.append(_as_like(arr, like) if target is None
+                      else target.place(_to_torch(arr)))
     return _unflatten_like(like_tree, iter(leaves)), meta["extra"]
 
 
@@ -140,12 +163,16 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: threading.Thread | None = None
         self._last_error: Exception | None = None
+        self._mesh_save = False         # the last save was a mesh's
 
     def save(self, step: int, tree, extra: dict | None = None):
         # Snapshot to host synchronously so mutation after save() is safe.
+        leaves = [leaf for _, leaf in _flatten_with_paths(tree)]
+        on_mesh = any(_is_dtensor(leaf) for leaf in leaves)
         host_tree = _unflatten_like(tree, iter(
-            [_host_array(leaf) for _, leaf in _flatten_with_paths(tree)]))
+            [_host_array(leaf) for leaf in leaves]))
         self.wait()
+        self._mesh_save = on_mesh
 
         def work():
             try:
@@ -154,17 +181,24 @@ class CheckpointManager:
             except Exception as e:  # surfaced on next wait()
                 self._last_error = e
 
-        if self.async_save:
+        if on_mesh and dist.get_rank() != 0:
+            pass                        # rank 0 writes
+        elif self.async_save:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
         else:
             work()
             self._raise_if_failed()
+        if on_mesh and not self.async_save:
+            self.wait()
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh_save:             # every rank sees rank 0's write
+            self._mesh_save = False
+            dist.barrier()
         self._raise_if_failed()
 
     def _raise_if_failed(self):

@@ -16,6 +16,10 @@ A copy of the reference's module: batches are numpy, bit for bit the
 reference's. One deliberate difference: ``DataConfig.device`` names where
 the protein source constructs its SFA (the card by default, as every
 entry point of the port; ``"cpu"`` to run without one).
+
+On a mesh each rank makes only its rows (``local_rows``: ``row_start`` and
+``rows_local`` from its data coordinate) and ``to_mesh`` joins them into
+the global batch's ``DTensor``.
 """
 
 from __future__ import annotations
@@ -130,6 +134,39 @@ class DataIterator:
         self.step = int(state["step"])
         assert state.get("seed", self.cfg.seed) == self.cfg.seed, "seed mismatch"
         return self
+
+
+def local_rows(dist, global_batch: int) -> tuple:
+    """(row_start, rows_local) of this rank's rows of a global batch: its
+    block by its data coordinate under the rules' ``batch`` placement (the
+    reference's ``launch/train.py`` gives each host its rows by process).
+    Ranks that share a data coordinate read the same rows; without a mesh,
+    every row."""
+    if dist is None or dist.mesh is None:
+        return 0, global_batch
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    shape, offset = compute_local_shape_and_global_offset(
+        (global_batch,), dist.mesh, dist.rules.placements(dist.mesh,
+                                                          "batch"))
+    return offset[0], shape[0]
+
+
+def to_mesh(local, dist):
+    """This rank's rows (a tensor, ``local_rows``' block) as the global
+    batch's ``DTensor``, sharded by the rules' ``batch`` placement over the
+    leading dim; the tensor itself without a mesh."""
+    if dist is None or dist.mesh is None:
+        return local
+    from torch.distributed.tensor import DTensor
+
+    from ..sharding.rules import mesh_device
+
+    placements = dist.rules.placements(dist.mesh, "batch",
+                                       *[None] * (local.dim() - 1))
+    return DTensor.from_local(local.to(mesh_device(dist.mesh)), dist.mesh,
+                              placements, run_check=False)
 
 
 def make_pipeline(cfg: DataConfig, *, prefetch: bool = True) -> DataIterator:

@@ -18,10 +18,18 @@ operands are upcast here (exact) rather than multiplied in bf16 (whose
 rounded results would be a different function).
 
 Caches are written in place: ``attention_layer`` updates the ``cache``
-tensors it is given and returns them.
+tensors it is given and returns them. A ``DTensor`` cache (on a mesh; the
+rules shard its sequence, batch or KV heads) is written on each rank's
+shard: DTensor has no sharding strategy for an in-place write into a
+sharded dim, so the new keys go to the cache's placements with the
+sequence whole, and each rank writes the positions its shard holds
+(``_shard_write``).
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -110,6 +118,10 @@ def blockwise_attention(
     q_chunk: int = 512,
     kv_chunk: int = 512,
 ) -> torch.Tensor:
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              softcap=softcap, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if hasattr(q, "device_mesh"):                   # a DTensor
+        return _sharded_blockwise(q, k, v, kw)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -172,6 +184,38 @@ def blockwise_attention(
     return out.to(q.dtype)
 
 
+def _sharded_blockwise(q, k, v, kw: dict):
+    """``blockwise_attention`` of DTensors, on each rank's shards under
+    ``local_map``: the rows over the data axes and the heads over the model
+    axis, as ``q`` has them (a sequence shard is gathered first). Rows and
+    heads are independent, so each rank's local attention is exact; as
+    DTensor ops the chunk loops would cross the mesh op by op. Where the
+    heads' split does not follow the KV groups (KV heads not a multiple of
+    the ranks that split the heads), K and V are repeated to one head a
+    query head first."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    place = [p if p in (Shard(0), Shard(2)) else Replicate()
+             for p in q.placements]
+    head_ranks = 1
+    for i, p in enumerate(place):
+        if p == Shard(2):
+            head_ranks *= mesh.size(i)
+    if H % head_ranks:                             # uneven heads: whole
+        place = [Replicate() if p == Shard(2) else p for p in place]
+    elif head_ranks > 1 and KV % head_ranks:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    q, k, v = (t.redistribute(mesh, place) for t in (q, k, v))
+    fn = local_map(functools.partial(blockwise_attention, **kw),
+                   out_placements=place, in_placements=(place,) * 3,
+                   in_grad_placements=(place,) * 3, device_mesh=mesh)
+    return fn(q, k, v)
+
+
 # --------------------------------------------------------------------------
 # Decode attention (one query vs cache)
 # --------------------------------------------------------------------------
@@ -186,6 +230,8 @@ def decode_attention(
     window: int = 0,              # ring cache when > 0 (S == window)
     softcap: float = 0.0,
 ) -> torch.Tensor:
+    if hasattr(q, "device_mesh"):                   # a DTensor
+        return _sharded_decode(q, cache_k, cache_v, pos, window, softcap)
     B, _, H, dh = q.shape
     S, KV = cache_k.shape[1], cache_k.shape[2]
     G = H // KV
@@ -211,6 +257,83 @@ def decode_attention(
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
+def _decode_partials(q, cache_k, cache_v, posb, seq_offset: int, S: int,
+                     window: int, softcap: float) -> tuple:
+    """Flash-decode partials ``(m, s, o)`` (the softmax monoid's element)
+    of one query against one slice of the cache's sequence, which starts at
+    ``seq_offset`` of a cache of length ``S``; ``posb`` (B, 1)."""
+    B, _, H, dh = q.shape
+    KV = cache_k.shape[2]
+    qv = q.reshape(B, KV, H // KV, dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qv.float(), cache_k.float()) \
+        * dh ** -0.5
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    idx = seq_offset + torch.arange(cache_k.shape[1], device=q.device)[None]
+    if window:
+        t = posb - torch.remainder(posb - idx, S)
+        valid = (t >= 0) & (t <= posb)
+    else:
+        valid = idx <= posb
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(cache_v.dtype).float(),
+                     cache_v.float())
+    return m, torch.sum(p, dim=-1, keepdim=True), o
+
+
+def _sharded_decode(q, cache_k, cache_v, pos, window: int, softcap: float):
+    """``decode_attention`` of DTensors on each rank's shards. DTensor's
+    einsum here would flatten a sharded batch dim with a sharded head dim,
+    which its view rules refuse; rows and KV heads are independent, so the
+    query goes to the cache's row and head split and each rank attends
+    locally. Where the rules shard the cache's sequence (``cache_seq``),
+    each rank computes its slice's flash-decode partials, which are
+    all-gathered over those mesh axes and combined with the softmax monoid
+    (the reference's design for that layout); otherwise the local call is
+    the one-device ``decode_attention`` itself."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from ..core.monoid import reduce, softmax_monoid
+
+    mesh, cp = cache_k.device_mesh, cache_k.placements
+    H, KV = q.shape[2], cache_k.shape[2]
+    qp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in cp]
+    seq_dims = [i for i, p in enumerate(cp) if p == Shard(1)]
+    if any(p == Shard(2) for p in cp) and (H % KV or KV % math.prod(
+            mesh.size(i) for i, p in enumerate(cp) if p == Shard(2))):
+        raise ValueError("decode: the cache's KV heads split unevenly")
+    q = q.redistribute(mesh, qp).to_local()
+    k, v = cache_k.to_local(), cache_v.to_local()
+    _, (b0, s0, *_) = compute_local_shape_and_global_offset(
+        cache_k.shape, mesh, cp)
+    if isinstance(pos, DTensor):            # replicated: every rank's own
+        pos = pos.full_tensor()
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int64).reshape(-1)
+    B = q.shape[0]
+    if pos.numel() > 1:
+        pos = pos[b0:b0 + B]
+    if not seq_dims:
+        out = decode_attention(q, k, v, pos if pos.numel() > 1 else pos[0],
+                               window=window, softcap=softcap)
+    else:
+        posb = torch.broadcast_to(pos, (B,))[:, None]
+        part = _decode_partials(q, k, v, posb, s0, cache_k.shape[1], window,
+                                softcap)
+        for i in seq_dims:
+            part = tuple(funcol.all_gather_tensor(t[None], 0, (mesh, i))
+                         for t in part)
+            part = reduce(softmax_monoid(), part, axis=0)
+        m, ssum, o = part
+        out = (o / torch.clamp(ssum, min=1e-30)).reshape(q.shape).to(
+            q.dtype)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
 # --------------------------------------------------------------------------
 # Full layer: projections + attention + cache handling + output proj
 # --------------------------------------------------------------------------
@@ -222,14 +345,57 @@ def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int, window: int) ->
     return {"k": (batch, S, KV, dh), "v": (batch, S, KV, dh)}
 
 
+def _shard_write(cache, new) -> tuple:
+    """A ``DTensor`` cache (B, S, KV, dh) and new keys (B, n, KV, dh) ->
+    (this rank's cache shard, the new keys laid out as that shard with the
+    sequence whole, the shard's global offsets). Writing into the shard
+    writes the cache."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    if not isinstance(new, DTensor):
+        raise TypeError("a DTensor cache takes DTensor keys")
+    mesh, place = cache.device_mesh, cache.placements
+    want = [Replicate() if p == Shard(1) else p for p in place]
+    new = new.to(cache.dtype).redistribute(mesh, want).to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                      place)
+    return cache.to_local(), new, offset
+
+
+def _write_positions(cache, new, positions: list) -> None:
+    """``cache[:, positions[i]] = new[:, i]`` in place (prefill)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(cache, DTensor):
+        idx = torch.as_tensor(positions, device=cache.device)
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    local, new, (_, off, *_) = _shard_write(cache, new)
+    held = [(i, p - off) for i, p in enumerate(positions)
+            if 0 <= p - off < local.shape[1]]
+    if held:
+        src, dst = (torch.as_tensor(x, device=local.device)
+                    for x in zip(*held))
+        local.index_copy_(1, dst, new.index_select(1, src))
+
+
 def _write_decode(cache: torch.Tensor, new: torch.Tensor, slot) -> None:
     """Write the one-token ``new`` (B, 1, KV, dh) into ``cache`` (B, S, KV,
     dh) at ``slot``, in place. A scalar slot is clamped into the cache, as
     ``dynamic_update_slice`` clamps its start; a per-row slot out of the
     cache is dropped, as a scatter drops it."""
+    from torch.distributed.tensor import DTensor
+
     S = cache.shape[1]
-    new = new.to(cache.dtype)
+    if isinstance(slot, DTensor):           # replicated: every rank's own
+        slot = slot.full_tensor()
     slot = torch.as_tensor(slot, device=cache.device).to(torch.int64)
+    if isinstance(cache, DTensor):
+        _write_decode_shard(cache, new, slot)
+        return
+    new = new.to(cache.dtype)
     if slot.dim() == 0:
         cache.index_copy_(1, slot.clamp(0, S - 1).reshape(1), new)
         return
@@ -237,6 +403,31 @@ def _write_decode(cache: torch.Tensor, new: torch.Tensor, slot) -> None:
     at = slot.clamp(0, S - 1)
     keep = ((slot >= 0) & (slot < S))[:, None, None]
     cache[rows, at] = torch.where(keep, new[:, 0], cache[rows, at])
+
+
+def _write_decode_shard(cache, new, slot: torch.Tensor) -> None:
+    """``_write_decode`` on this rank's shard of a ``DTensor`` cache,
+    without a branch on the slot's value (the dry-run's slot is a fake
+    tensor): a row whose slot lies outside the shard rewrites what it
+    holds."""
+    S = cache.shape[1]
+    local, new, (b0, s0, *_) = _shard_write(cache, new)
+    Bl, Sl = local.shape[:2]
+    if Bl == 0 or Sl == 0:
+        return
+    if slot.dim() == 0:
+        keep = torch.ones((), dtype=torch.bool, device=local.device)
+        at = slot.clamp(0, S - 1)
+    else:
+        slot = slot[b0:b0 + Bl]
+        keep = (slot >= 0) & (slot < S)
+        at = slot.clamp(0, S - 1)
+    at = at - s0
+    keep = keep & (at >= 0) & (at < Sl)
+    at = torch.broadcast_to(at.clamp(0, Sl - 1), (Bl,))
+    keep = torch.broadcast_to(keep, (Bl,))[:, None, None]
+    rows = torch.arange(Bl, device=local.device)
+    local[rows, at] = torch.where(keep, new[:, 0], local[rows, at])
 
 
 def attention_layer(
@@ -283,13 +474,12 @@ def attention_layer(
             S = k.shape[1]
             if window and S > S_cache:
                 # Keep only the last ``window`` keys, placed at their ring slots.
-                slots = torch.remainder(
-                    torch.arange(S - S_cache, S, device=x.device), S_cache)
-                cache["k"][:, slots] = k[:, S - S_cache:].to(cache["k"].dtype)
-                cache["v"][:, slots] = v[:, S - S_cache:].to(cache["v"].dtype)
+                slots = [p % S_cache for p in range(S - S_cache, S)]
+                _write_positions(cache["k"], k[:, S - S_cache:], slots)
+                _write_positions(cache["v"], v[:, S - S_cache:], slots)
             else:
-                cache["k"][:, :S] = k.to(cache["k"].dtype)
-                cache["v"][:, :S] = v.to(cache["v"].dtype)
+                _write_positions(cache["k"], k, list(range(S)))
+                _write_positions(cache["v"], v, list(range(S)))
             new_cache = cache
 
     out = constrain(out, rules, "batch", "attn_seq", "heads_act", None)

@@ -6,10 +6,12 @@ Models declare their parameters as a tree (nested dicts) of ``ParamSpec``
 * ``init_params``       — materialize real tensors from a ``torch.Generator``;
 * ``params_from_numpy`` — carry the reference's arrays over, leaf for leaf;
 * ``pspec_tree``        — the logical layout of every leaf (mesh-axis tuples);
+* ``distribute_params`` — full tensors onto a ``DeviceMesh`` as ``DTensor``s
+                          placed by the rules (``params_from_numpy`` plus
+                          this is how carried weights reach a mesh);
+* ``shape_structs``     — fake ``DTensor`` stand-ins with the rules'
+                          placements for the dry-run: zero bytes allocated;
 * ``param_count`` / ``param_bytes`` — sizes without allocating anything.
-
-``shape_structs`` (the reference's dry-run stand-ins) waits for the dry-run
-slice (ROADMAP queue 1, item 9c).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..sharding.rules import Rules
+from ..sharding.rules import Rules, Sharding, mesh_device
 
 #: ParamSpec dtype names -> torch dtypes.
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -54,6 +56,11 @@ def _build(specs, fn, path: tuple = ()):
     if is_spec(specs):
         return fn(path, specs)
     return {k: _build(specs[k], fn, path + (k,)) for k in sorted(specs)}
+
+
+def map_specs_with_paths(fn, tree):
+    """``fn(path, spec)`` on every ``ParamSpec`` of a nested-dict tree."""
+    return _build(tree, fn)
 
 
 def map_specs(fn, tree):
@@ -145,6 +152,93 @@ def params_from_numpy(tree, specs, device="cuda"):
     got = leaves_against(tree, specs)
     return _build(specs, lambda path, spec: check_leaf(
         path, _numpy_to_torch(np.asarray(got[path])), spec).to(dev))
+
+
+def distribute_params(tree, specs, rules: Rules, mesh):
+    """``tree``'s full tensors (every rank holds the same) as ``DTensor``s
+    over ``mesh``, each placed by ``rules.placements`` of its spec's logical
+    axes. Leaves are held to ``specs`` as in ``params_from_numpy``."""
+    got = leaves_against(tree, specs)
+    return _build(specs, lambda path, spec: distribute_leaf(
+        check_leaf(path, got[path], spec), spec, rules, mesh))
+
+
+def distribute_leaf(t: torch.Tensor, spec: ParamSpec, rules: Rules, mesh):
+    """One full tensor as a ``DTensor`` placed by ``spec``'s logical
+    axes."""
+    return Sharding(mesh, tuple(rules.placements(mesh, *spec.logical))
+                    ).place(t)
+
+
+def zeros_on_mesh(specs, dist):
+    """Zero ``DTensor``s for a ParamSpec tree, placed by ``dist``'s rules on
+    its mesh."""
+    from torch.distributed.tensor import zeros
+
+    return map_specs(lambda s: zeros(
+        s.shape, dtype=torch_dtype(s.dtype), device_mesh=dist.mesh,
+        placements=dist.rules.placements(dist.mesh, *s.logical)), specs)
+
+
+def gather_data_axes(tree, dist):
+    """Each ``DTensor`` leaf of ``tree`` with the data axes dropped from its
+    placements (the reference's ZeRO-3: a weight sharded over ``data`` is
+    all-gathered where it is used, and the backward of the gather is the
+    reduce-scatter of its gradient). Computing on weights sharded only
+    over ``model`` keeps DTensor from turning a weight's shard of a
+    contracted dim into a partial sum of activations."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    names = dist.mesh.mesh_dim_names
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        want = [Replicate() if names[i] in dist.data_axes else p
+                for i, p in enumerate(t.placements)]
+        return t if tuple(want) == tuple(t.placements) else t.redistribute(
+            t.device_mesh, want)
+
+    return tree_map(one, tree)
+
+
+def _fake_mode():
+    """The active ``FakeTensorMode``, else a new one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        if isinstance(mode, FakeTensorMode):
+            return mode
+    return FakeTensorMode()
+
+
+def fake_dtensor(shape, dtype, mesh, placements, mode=None):
+    """A ``DTensor`` of global ``shape`` whose local shard is a fake tensor
+    of ``mode`` (the active ``FakeTensorMode`` by default): no bytes, no
+    collective."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mode = mode or _fake_mode()
+    local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh,
+                                                     placements)
+    with mode:
+        t = torch.empty(local, dtype=dtype, device=mesh_device(mesh))
+        return DTensor.from_local(t, mesh, placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+
+def shape_structs(tree, rules: Rules, mesh, mode=None):
+    """Fake ``DTensor`` stand-ins for a ParamSpec tree, placed by the rules
+    (the reference's ``ShapeDtypeStruct``s with ``NamedSharding``s): a
+    314B-parameter model's tree without a byte allocated."""
+    mode = mode or _fake_mode()
+    return map_specs(lambda s: fake_dtensor(
+        s.shape, torch_dtype(s.dtype), mesh,
+        rules.placements(mesh, *s.logical), mode), tree)
 
 
 def pspec_tree(tree, rules: Rules):

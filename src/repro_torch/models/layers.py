@@ -71,10 +71,13 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig, rules: Rules
     else:
         h = gelu(x @ params["w_up"].to(dtype) + params["b_up"].to(dtype))
     h = constrain(h, rules, "batch", "attn_seq", "mlp")
-    out = h @ params["w_down"].to(dtype)
+    # On a mesh the down-projection's partial sums are reduced before the
+    # bias is added (DTensor cannot turn a sharded bias into a partial sum).
+    out = constrain(h @ params["w_down"].to(dtype), rules, "batch",
+                    "seq_act", "embed_act")
     if cfg.mlp_variant != "swiglu":
         out = out + params["b_down"].to(dtype)
-    return constrain(out, rules, "batch", "seq_act", "embed_act")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -88,9 +91,52 @@ def embedding_spec(cfg: ModelConfig) -> ParamSpec:
     )
 
 
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A ``DTensor`` table is looked up on each rank's
+    vocab shard under ``local_map``: ids outside the shard give zero rows,
+    and the result is a partial sum over the vocab's mesh axes (the next
+    ``constrain`` reduces it), the rows split as the tokens' are. DTensor's
+    own strategy for this gather cannot take a partial gradient back in
+    some PyTorch versions (the card's 2.11)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]
+    table = table.redistribute(mesh, [Shard(0) if v else Replicate()
+                                      for v in vocab])
+    if not isinstance(tokens, DTensor):     # every rank's own: replicated
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rows = [Shard(0) if p == Shard(0) and not v else Replicate()
+            for p, v in zip(tokens.placements, vocab)]
+    tokens = tokens.redistribute(mesh, rows)
+    _, (off, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+
+    def local(tab, tok):
+        t = tok.long() - off
+        inside = ((t >= 0) & (t < tab.shape[0]))[..., None]
+        return torch.where(inside, tab[t.clamp(0, tab.shape[0] - 1)],
+                           torch.zeros((), dtype=tab.dtype, device=tab.device))
+
+    return local_map(
+        local,
+        out_placements=[Partial() if v else r for v, r in zip(vocab, rows)],
+        in_placements=(table.placements, rows),
+        in_grad_placements=([Shard(0) if v else Partial() if r == Shard(0)
+                             else Replicate() for v, r in zip(vocab, rows)],
+                            rows),                  # ids: no gradient
+        device_mesh=mesh)(table, tokens)
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
           rules: Rules) -> torch.Tensor:
-    x = table[tokens.long()].to(torch_dtype(cfg.dtype))
+    x = lookup(table, tokens).to(torch_dtype(cfg.dtype))
     return constrain(x, rules, "batch", "seq_act", "embed_act")
 
 
@@ -129,10 +175,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean token cross-entropy in f32, with optional z-loss regularizer."""
+    """Mean token cross-entropy in f32, with optional z-loss regularizer.
+
+    The vocab dim is kept (size 1) until the mean: on logits sharded over
+    the vocab, DTensor's gather gives a masked partial sum that it cannot
+    reduce through a view that drops the dim."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, labels.long()[..., None])
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

@@ -47,15 +47,19 @@ def rglru_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _gates(params, xr):
-    """Recurrence coefficients: returns (a, beta_x) in f32; xr (…, w)."""
+def _gates(params, xr, rules: Rules):
+    """Recurrence coefficients: returns (a, beta_x) in f32; xr (B, S, w).
+    On a mesh the gate products (over the ``rnn`` channels, which the rules
+    may shard) are summed whole before their bias is added."""
     x32 = xr.float()
-    i_gate = torch.sigmoid(
-        x32 @ params["w_input_gate"].float() + params["b_input_gate"].float()
-    )
-    r_gate = torch.sigmoid(
-        x32 @ params["w_a_gate"].float() + params["b_a_gate"].float()
-    )
+
+    def gate(w, b):
+        z = constrain(x32 @ params[w].float(), rules, "batch", "seq_act",
+                      None)
+        return torch.sigmoid(z + params[b].float())
+
+    i_gate = gate("w_input_gate", "b_input_gate")
+    r_gate = gate("w_a_gate", "b_a_gate")
     log_a = -_C * F.softplus(params["lam"].float()) * r_gate
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -82,14 +86,14 @@ def rglru_layer(
         conv = sum(hist[:, i] * params["conv_w"][i].to(dtype) for i in range(W))
         xr1 = F.silu(conv + params["conv_b"].to(dtype))[:, None]       # (B,1,w)
         new_conv = hist[:, 1:]
-        a, bx = _gates(params, xr1)
+        a, bx = _gates(params, xr1, rules)
         h = a[:, 0] * cache["h"] + bx[:, 0]                            # (B,w)
         y = h[:, None].to(dtype)
         new_cache = {"conv": new_conv, "h": h}
     else:
         xr, conv_state = _causal_conv(xr, params["conv_w"], params["conv_b"],
                                       cache["conv"].to(dtype) if cache else None)
-        a, bx = _gates(params, xr)
+        a, bx = _gates(params, xr, rules)
         if cache is not None and "h" in cache:
             bx[:, 0] += a[:, 0] * cache["h"]
         h = M.scan(AFF, (a, bx), axis=1)[1]                            # (B,S,w)

@@ -14,6 +14,8 @@ in f32. Decode carries ``(conv_state, ssm_state)``, O(1) in context length.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -111,9 +113,7 @@ def mamba2_layer(
         pad = Q - S % Q
         x = F.pad(x, (0, 0, 0, pad))
         S = S + pad
-    nc = S // Q
     dtype = x.dtype
-    f32 = torch.float32
 
     zxbcdt = x @ params["in_proj"].to(dtype)
     z, xin, Bm, Cm, dt = _split_proj(zxbcdt, cfg)
@@ -124,8 +124,36 @@ def mamba2_layer(
     Cm = conv_out[..., d_in + N:]
     xin = constrain(xin, rules, "batch", "seq_act", "rnn")
 
-    dt = F.softplus(dt.float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())                       # (H,) negative
+    y, final_state = _on_rows(_ssd, (xin, Bm, Cm, dt),
+                              (params["dt_bias"], params["A_log"], params["D"]),
+                              cfg=cfg, Q=Q, want_state=mode == "prefill")
+    y = y.to(dtype)
+
+    # gated norm + output
+    if S != S_orig:
+        y = y[:, :S_orig]
+        z = z[:, :S_orig]
+    y = rmsnorm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    out = y @ params["out_proj"].to(dtype)
+    out = constrain(out, rules, "batch", "seq_act", "embed_act")
+
+    new_cache = None
+    if mode == "prefill":
+        new_cache = {"conv": conv_state, "ssm": final_state}
+    return out, new_cache
+
+
+def _ssd(xin, Bm, Cm, dt, dt_bias, A_log, D, *, cfg: ModelConfig, Q: int,
+         want_state: bool) -> tuple:
+    """The chunked SSD of (B, S, ·) activations -> (y (B, S, d_in) f32,
+    the final state (B, H, N, P) f32 when ``want_state``, else an empty
+    tensor)."""
+    B, S, _ = xin.shape
+    d_in, H, Pd, N = mamba2_dims(cfg)
+    nc = S // Q
+    f32 = torch.float32
+    dt = F.softplus(dt.float() + dt_bias.float())
+    A = -torch.exp(A_log.float())                       # (H,) negative
     loga = dt * A                                                  # (B, S, H) ≤ 0
 
     xh = xin.reshape(B, nc, Q, H, Pd).to(f32)
@@ -136,7 +164,7 @@ def mamba2_layer(
 
     # --- intra-chunk (quadratic, attention-like) ------------------------------
     decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (B,nc,Qi,Qj,H)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xin.device))
     scores = torch.einsum("bnqk,bnjk->bnqj", _bf16(Cc), _bf16(Bc))  # C_i · B_j
     scores = scores[..., None] * decay * dtc[:, :, None, :, :]       # (B,nc,Qi,Qj,H)
     scores = torch.where(mask[None, None, :, :, None], scores, 0.0)
@@ -153,23 +181,42 @@ def mamba2_layer(
         "bnqh,bnqk,bnhkp->bnqhp", torch.exp(cum), Cc, state_in
     )
     y = (y_intra + y_inter
-         + params["D"].float()[None, None, None, :, None] * xh)
-    y = y.reshape(B, S, d_in).to(dtype)
+         + D.float()[None, None, None, :, None] * xh)
+    y = y.reshape(B, S, d_in)
+    if not want_state:
+        return y, y.new_zeros(0)
+    final_state = (a_c[:, -1, ..., 0, 0][:, :, None, None] * state_in[:, -1]
+                   + S_c[:, -1])                                      # (B,H,N,P)
+    return y, final_state.float()
 
-    # gated norm + output
-    if S != S_orig:
-        y = y[:, :S_orig]
-        z = z[:, :S_orig]
-    y = rmsnorm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(dtype)
-    out = constrain(out, rules, "batch", "seq_act", "embed_act")
 
-    new_cache = None
-    if mode == "prefill":
-        final_state = (a_c[:, -1, ..., 0, 0][:, :, None, None] * state_in[:, -1]
-                       + S_c[:, -1])                                  # (B,H,N,P)
-        new_cache = {"conv": conv_state, "ssm": final_state.float()}
-    return out, new_cache
+def _on_rows(fn, acts: tuple, params: tuple, **kw) -> tuple:
+    """``fn(*acts, *params, **kw)`` -> a tuple of (B, ...) tensors. On
+    DTensors it runs under ``local_map`` on each rank's rows: the
+    activations (rows first) split only over the data axes, the parameters
+    replicated. DTensor's einsums here would flatten a sharded row dim with
+    a sharded channel dim, which its view rules refuse; rows are
+    independent, so each rank's local call is exact. A parameter's
+    gradient is then each data shard's partial sum (its rows'), the same on
+    every rank of the other axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(acts[0], DTensor):
+        return fn(*acts, *params, **kw)
+    mesh = acts[0].device_mesh
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in acts[0].placements)
+    whole = (Replicate(),) * len(rows)
+    summed = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    acts = tuple(a.redistribute(mesh, rows) for a in acts)
+    params = tuple(p.redistribute(mesh, whole) for p in params)
+    f = local_map(functools.partial(fn, **kw), out_placements=(rows, rows),
+                  in_placements=(rows,) * len(acts) + (whole,) * len(params),
+                  in_grad_placements=(rows,) * len(acts)
+                  + (summed,) * len(params), device_mesh=mesh)
+    return f(*acts, *params)
+
 
 
 def _mamba2_decode(params, x, cfg, rules, cache):
@@ -191,20 +238,25 @@ def _mamba2_decode(params, x, cfg, rules, cache):
     Bv = conv_out[:, d_in: d_in + N].float()                          # (B,N)
     Cv = conv_out[:, d_in + N:].float()
 
-    dt = F.softplus(dt[:, 0].float() + params["dt_bias"].float())     # (B,H)
-    A = -torch.exp(params["A_log"].float())
-    a = torch.exp(dt * A)                                             # (B,H)
-
-    state = cache["ssm"]                                              # (B,H,N,P)
-    state = (a[..., None, None] * state
-             + torch.einsum("bh,bk,bhp->bhkp", dt, Bv, xin))
-    y = torch.einsum("bk,bhkp->bhp", Cv, state)
-    y = y + params["D"].float()[None, :, None] * xin
+    y, state = _on_rows(_ssd_step, (xin, Bv, Cv, dt[:, 0], cache["ssm"]),
+                        (params["dt_bias"], params["A_log"], params["D"]))
     y = y.reshape(B, 1, d_in).to(dtype)
 
     y = rmsnorm(y * F.silu(z), params["norm"], cfg.norm_eps)
     out = y @ params["out_proj"].to(dtype)
     return out, {"conv": new_conv, "ssm": state}
+
+
+def _ssd_step(xin, Bv, Cv, dt, state, dt_bias, A_log, D) -> tuple:
+    """One token of the recurrence: xin (B, H, P), Bv and Cv (B, N), dt
+    (B, H) raw, state (B, H, N, P) -> (y (B, H, P), the new state)."""
+    dt = F.softplus(dt.float() + dt_bias.float())                     # (B,H)
+    A = -torch.exp(A_log.float())
+    a = torch.exp(dt * A)                                             # (B,H)
+    state = (a[..., None, None] * state
+             + torch.einsum("bh,bk,bhp->bhkp", dt, Bv, xin))
+    y = torch.einsum("bk,bhkp->bhp", Cv, state)
+    return y + D.float()[None, :, None] * xin, state
 
 
 def mamba2_cache_shapes(cfg: ModelConfig, batch: int) -> dict:

@@ -27,7 +27,7 @@ from .attention import (
     init_cache_shape,
 )
 from .base import ParamSpec, stack_tree, torch_dtype, tree_map
-from .layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, unembed
+from .layers import lookup, mlp, mlp_specs, rmsnorm, rmsnorm_spec, unembed
 from .transformer import remat_wrap
 
 
@@ -137,7 +137,7 @@ def whisper_forward(
     B, S = tokens.shape
     dev = tokens.device
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    x = lookup(params["embed"], tokens).to(dtype)
     if mode == "decode":
         pos = torch.as_tensor(cache_pos, device=dev)
         cp = pos[:, None] if pos.dim() else pos

@@ -3,9 +3,16 @@
 An ``Optimizer`` exposes:
   * ``state_specs(param_specs)`` — a ParamSpec tree for its state, so
     checkpointing can restore without materializing params first;
-  * ``init(params, param_specs)`` — zero state on the parameters' device;
+  * ``init(params, param_specs, dist=None)`` — zero state on the
+    parameters' device; with ``dist`` on a mesh, ``DTensor``s placed by its
+    rules;
   * ``update(grads, state, params, step, param_specs)`` -> (params, state,
     stats).
+
+On a mesh the update runs as ``DTensor`` ops, in place on each rank's
+shards: the global gradient norm is the norm of the whole gradient (a
+``DTensor`` reduction sums the shards' squares over the mesh), and
+Adafactor's row and column means are the whole tensor's.
 
 Implementations: AdamW, AdamW with block-quantized int8 moments (the 314B
 config's memory plan), and Adafactor (factored second moments). The f32
@@ -31,7 +38,8 @@ import torch
 
 from ..config import OptimizerConfig
 from ..models.base import (ParamSpec, leaves_with_paths, map_specs,
-                           torch_dtype, tree_leaves, tree_map)
+                           torch_dtype, tree_leaves, tree_map, zeros_on_mesh)
+from ..sharding.rules import implicit_scope
 from .schedule import make_schedule
 
 QBLOCK = 256  # int8 quantization block (along the last dim)
@@ -61,8 +69,16 @@ def build_optimizer(cfg: OptimizerConfig) -> Optimizer:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The norm of the whole tree; a ``DTensor`` leaf's sum of squares is
+    its whole tensor's (reduced over the mesh), a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    def sq(x):
+        out = torch.sum(torch.square(x.float()))
+        return out.full_tensor() if isinstance(out, DTensor) else out
+
+    return torch.sqrt(torch.sum(torch.stack([sq(x) for x in
+                                             tree_leaves(tree)])))
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -89,9 +105,22 @@ def _at(tree, path: tuple):
     return tree
 
 
-def _zeros_like_specs(specs, device):
+def _zeros_like_specs(specs, params, dist=None):
+    """Zero state for ``specs`` on ``params``' device, or placed by
+    ``dist``'s rules on its mesh."""
+    if dist is not None and dist.mesh is not None:
+        return zeros_on_mesh(specs, dist)
+    device = tree_leaves(params)[0].device
     return map_specs(lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
                                            device=device), specs)
+
+
+def _mesh_scope(params):
+    """``implicit_scope`` when the parameters are ``DTensor``s: the step's
+    plain scalars (learning rate, bias corrections) are replicated."""
+    from torch.distributed.tensor import DTensor
+
+    return implicit_scope(isinstance(tree_leaves(params)[0], DTensor))
 
 
 def _per_leaf(one, grads, state, params, param_specs):
@@ -146,12 +175,15 @@ def _adamw(cfg: OptimizerConfig, quantized: bool = False) -> Optimizer:
 
         return map_specs(one, param_specs)
 
-    def init(params, param_specs):
-        return _zeros_like_specs(state_specs(param_specs),
-                                 tree_leaves(params)[0].device)
+    def init(params, param_specs, dist=None):
+        return _zeros_like_specs(state_specs(param_specs), params, dist)
 
     @torch.no_grad()
     def update(grads, state, params, step, param_specs):
+        with _mesh_scope(params):
+            return _update(grads, state, params, step, param_specs)
+
+    def _update(grads, state, params, step, param_specs):
         scale, gnorm = clip_scale(grads, cfg.grad_clip)
         step = torch.as_tensor(step, device=gnorm.device)
         lr = schedule(step)
@@ -212,12 +244,15 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
 
         return map_specs(one, param_specs)
 
-    def init(params, param_specs):
-        return _zeros_like_specs(state_specs(param_specs),
-                                 tree_leaves(params)[0].device)
+    def init(params, param_specs, dist=None):
+        return _zeros_like_specs(state_specs(param_specs), params, dist)
 
     @torch.no_grad()
     def update(grads, state, params, step, param_specs):
+        with _mesh_scope(params):
+            return _update(grads, state, params, step, param_specs)
+
+    def _update(grads, state, params, step, param_specs):
         scale, gnorm = clip_scale(grads, cfg.grad_clip)
         step = torch.as_tensor(step, device=gnorm.device)
         lr = schedule(step)

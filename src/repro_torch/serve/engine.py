@@ -7,13 +7,23 @@ batch-1 cache that is scattered into the slot's row of the shared decode
 cache (one contiguous region per slot). Decode advances all live slots one
 token per step, each at its own position.
 
-Everything runs under ``torch.inference_mode()`` on the parameters' device;
+Everything runs under ``torch.inference_mode()`` (on a mesh
+``torch.no_grad()``) on the parameters' device;
 sampling draws from the engine's own ``torch.Generator`` there, seeded
 0 (the reference seeds ``PRNGKey(0)``).
+
+With a ``Dist`` on a mesh every rank runs the same engine: the decode cache
+is placed by the rules (for qwen1.5-0.5B, ``cache_kv_heads`` over
+``model``); a batch-1 prefill cannot shard its batch over the data axes, so
+it runs with them replicated (as the reference's dry-run does for a batch
+of one) and each rank writes its shard of the slot's row; the logits are
+``full_tensor()`` before sampling, so every rank samples the same token
+from its generator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -50,8 +60,10 @@ class ServeEngine:
         self.eos_id = eos_id
         self.temperature = temperature
 
-        self.cache = model.init_cache(n_slots, max_len, device=self.device)
-        self.prefill_one = make_prefill_step(model, run, dist)
+        single = _batch_one(dist)
+        self.cache = model.init_cache(n_slots, max_len, device=self.device,
+                                      dist=dist)
+        self.prefill_one = make_prefill_step(model, run, single)
         self.decode = make_decode_step(model, run, dist)
         self.slot_req: list = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, dtype=np.int64)   # next position
@@ -60,7 +72,8 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
         self.completed: list = []
-        self._single_cache = model.init_cache(1, max_len, device=self.device)
+        self._single_cache = model.init_cache(1, max_len, device=self.device,
+                                              dist=single)
 
     # -- admission ---------------------------------------------------------------
     def submit(self, req: Request):
@@ -72,8 +85,17 @@ class ServeEngine:
                 req = self.queue.popleft()
                 self._prefill_into(slot, req)
 
-    @torch.inference_mode()
+    def _no_grad(self):
+        """``inference_mode``; on a mesh ``no_grad`` (DTensor's views of
+        the parameters cannot be made in inference mode)."""
+        return torch.no_grad() if self.dist.mesh is not None \
+            else torch.inference_mode()
+
     def _prefill_into(self, slot: int, req: Request):
+        with self._no_grad():
+            self._prefill(slot, req)
+
+    def _prefill(self, slot: int, req: Request):
         toks = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                device=self.device)[None]
         single = self._single_cache
@@ -91,11 +113,16 @@ class ServeEngine:
 
     # -- decode loop ---------------------------------------------------------------
     def _sample(self, logits) -> np.ndarray:
+        if hasattr(logits, "full_tensor"):          # a DTensor
+            logits = logits.full_tensor()
         return temperature_sample(logits, self._gen, self.temperature).cpu().numpy()
 
-    @torch.inference_mode()
     def step(self):
         """One decode step over all live slots."""
+        with self._no_grad():
+            return self._step()
+
+    def _step(self):
         live = [s for s in range(self.n_slots) if self.slot_req[s] is not None]
         if not live:
             self._admit()
@@ -132,12 +159,41 @@ class ServeEngine:
         return self.completed
 
 
+def _batch_one(dist: Dist) -> Dist:
+    """``dist`` for a batch of one: the batch replicated over the data
+    axes."""
+    if dist.mesh is None:
+        return dist
+    return dataclasses.replace(dist, rules=dist.rules.with_overrides(
+        {"batch": None, "cache_batch": None}))
+
+
 def _put(big: torch.Tensor, small: torch.Tensor, slot: int) -> None:
     """``dynamic_update_slice_in_dim(big, small, slot, axis)`` in place, on
-    the batch axis: the start clamped so ``small`` fits, as XLA clamps it."""
+    the batch axis: the start clamped so ``small`` fits, as XLA clamps it.
+    A ``DTensor`` ``big`` is written on this rank's shard (DTensor has no
+    strategy for an in-place write into a slice of a sharded dim): ``small``
+    goes to ``big``'s placements with the batch axis whole, and the rank
+    whose shard holds the rows writes them."""
     axis = _batch_axis(big, small)
     start = min(max(slot, 0), big.shape[axis] - small.shape[axis])
-    big.narrow(axis, start, small.shape[axis]).copy_(small)
+    if not hasattr(big, "device_mesh"):
+        big.narrow(axis, start, small.shape[axis]).copy_(small)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    want = [Replicate() if p == Shard(axis) else p for p in big.placements]
+    small = small.redistribute(big.device_mesh, want).to_local()
+    local = big.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        big.shape, big.device_mesh, big.placements)
+    lo = max(start, offset[axis])
+    hi = min(start + small.shape[axis], offset[axis] + local.shape[axis])
+    if lo < hi:
+        local.narrow(axis, lo - offset[axis], hi - lo).copy_(
+            small.narrow(axis, lo - start, hi - lo))
 
 
 def _batch_axis(big, small) -> int:

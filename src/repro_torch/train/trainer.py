@@ -12,6 +12,13 @@ straggler monitoring — the reference's ``train/trainer.py`` on one device.
   * **topology-agnostic checkpoints** — full arrays in the reference's
     format (``checkpoint/manager.py``).
 
+On a mesh (``dist`` from ``Dist.for_mesh``; every rank runs the same
+trainer) the parameters and optimizer state are ``DTensor``s placed by the
+rules, each rank's data iterator makes its own rows (``DataConfig``'s
+``row_start`` / ``rows_local``, ``data.local_rows``) and ``to_mesh`` joins
+them into the global batch; a restore distributes each leaf onto the
+current mesh, whatever mesh wrote it.
+
 Differences from the reference, deliberate: parameters are drawn from a
 ``torch.Generator`` seeded ``run.seed`` on ``device`` (the card by
 default), not from ``jax.random``; the train step updates parameters and
@@ -31,6 +38,7 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..config import RunConfig
 from ..data import DataIterator
+from ..data.pipeline import to_mesh
 from ..device import resolve_device
 from ..models import base as mbase
 from ..models.model import Model
@@ -91,8 +99,9 @@ class Trainer:
     # -- state ------------------------------------------------------------------
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.run.seed)
-        self.params = self.model.init(gen, device=self.device)
-        self.opt_state = self.opt.init(self.params, self.param_specs)
+        self.params = self.model.init(gen, device=self.device, dist=self.dist)
+        self.opt_state = self.opt.init(self.params, self.param_specs,
+                                       self.dist)
         self.step = 0
 
     def try_resume(self) -> bool:
@@ -100,15 +109,21 @@ class Trainer:
         step and the data iterator's position."""
         if self.ckpt.latest() is None:
             return False
-        like = {"params": self.params if self.params is not None else
-                mbase.map_specs(lambda s: torch.empty(
-                    s.shape, dtype=mbase.torch_dtype(s.dtype),
-                    device=self.device), self.param_specs)}
-        if self.opt_state is None:
-            self.opt_state = self.opt.init(like["params"], self.param_specs)
-        like["opt"] = self.opt_state
-        step, tree, extra = self.ckpt.restore(like)
-        self.params = self.model.load(tree["params"])
+        if self.dist.mesh is not None:     # the leaves' specs and targets
+            like = {"params": self.param_specs,
+                    "opt": self.opt.state_specs(self.param_specs)}
+        else:
+            like = {"params": self.params if self.params is not None else
+                    mbase.map_specs(lambda s: torch.empty(
+                        s.shape, dtype=mbase.torch_dtype(s.dtype),
+                        device=self.device), self.param_specs)}
+            if self.opt_state is None:
+                self.opt_state = self.opt.init(like["params"],
+                                               self.param_specs)
+            like["opt"] = self.opt_state
+        step, tree, extra = self.ckpt.restore(
+            like, shardings=self.dist.shardings(like))
+        self.params = self.model.load(tree["params"], self.dist)
         self.opt_state = tree["opt"]
         self.step = step
         if "data" in extra:
@@ -137,7 +152,7 @@ class Trainer:
         last_loss = None
         while self.step < total_steps:
             batch = next(self.data)
-            batch = {k: torch.as_tensor(v).to(self.device)
+            batch = {k: to_mesh(torch.as_tensor(v).to(self.device), self.dist)
                      for k, v in batch.items() if k in MODEL_INPUTS}
             t0 = time.perf_counter()
             self.params, self.opt_state, metrics = self.train_step_fn(

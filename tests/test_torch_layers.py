@@ -35,6 +35,7 @@ from repro_torch.models import attention, layers, moe, rglru, ssm  # noqa: E402
 from repro_torch.models.base import (  # noqa: E402
     init_params, params_from_numpy, pspec_tree)
 from repro_torch.models.model import build_model  # noqa: E402
+from repro.sharding.rules import Dist as JDist  # noqa: E402
 from repro_torch.sharding.rules import (  # noqa: E402
     DEFAULT_RULES, Dist, Rules, constrain)
 
@@ -272,8 +273,10 @@ def test_moe_local_matches_reference(router_scale, capacity):
 
 
 def test_moe_layer_with_a_mesh_raises():
+    """A mesh runs the sharded branch (``tests/test_torch_sharded.py``),
+    never the one-device path: plain activations on a mesh raise."""
     _, cfg = _cfgs(n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="shard_map"):
+    with pytest.raises(TypeError, match="DTensor"):
         moe.moe_layer({}, torch.zeros(1, 2, 32), cfg, DEFAULT_RULES,
                       mesh=object())
 
@@ -510,5 +513,11 @@ def test_rules_and_dist_mirror_the_reference():
     assert pspec_tree(specs, DEFAULT_RULES)["embed"] == ("model", "data")
     x = torch.ones(3)
     assert constrain(x, DEFAULT_RULES, "batch") is x
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dist(mesh=object())
+    # a mesh's axis roles, as the reference's for_mesh gives them
+    import types
+
+    for names in (("data", "model"), ("pod", "data", "model"), ("data",)):
+        d = Dist.for_mesh(types.SimpleNamespace(mesh_dim_names=names))
+        jd = JDist.for_mesh(types.SimpleNamespace(axis_names=names))
+        assert (d.rules.mesh_axes, d.data_axes, d.model_axis) == (
+            jd.rules.mesh_axes, jd.data_axes, jd.model_axis)

@@ -1,11 +1,11 @@
 """Every public name of the reference's ported packages has a twin in the
 port: each name in the ``__all__`` of ``repro.core``,
 ``repro.construction``, ``repro.engine``, ``repro.speculative``,
-``repro.scanservice``, ``repro.serve`` and ``repro.sharding`` exists in the
-matching ``repro_torch`` package (a submodule name as a submodule); and
-each public name a module of the LM half's serving path defines (its
-functions, classes, constants, and ``Model``'s methods) exists in its twin
-module. ``repro.obs`` has no ``__all__``.
+``repro.scanservice``, ``repro.serve``, ``repro.sharding`` and
+``repro.analysis`` exists in the matching ``repro_torch`` package (a
+submodule name as a submodule); and each public name a module of the LM
+half defines (its functions, classes, constants, and ``Model``'s methods)
+exists in its twin module. ``repro.obs`` has no ``__all__``.
 """
 
 import importlib
@@ -22,18 +22,20 @@ EXCEPTIONS = {
     "construction": {"RoundCompileCache", "RoundCacheInfo",
                      "round_compile_cache"},
 }
+#: ``analysis.hlo`` parses XLA's HLO text, which PyTorch does not have: its
+#: counterpart is ``analysis.trace`` (a dispatch-mode record of the step),
+#: which takes its public names.
+COUNTERPARTS = {"analysis": {"hlo": "trace"}}
 
-#: The LM half's modules ported so far, and the names of each that wait,
-#: with the ROADMAP item that brings them (queue 1, item 9c).
-DRY_RUN = "ROADMAP queue 1 item 9c: launch/{mesh,dryrun}"
-#: Left out for good: ``optim.api._layerwise`` (a ``lax.map`` over the layer
+#: The LM half's modules, and the names of each that are left out. Left
+#: out for good: ``optim.api._layerwise`` (a ``lax.map`` over the layer
 #: axis behind a flag that is off by default; ``update`` never calls it).
 LEFT_OUT = "left out: behind a flag that is off by default, never called"
 LM_MODULES = {
     "config": {},
     "configs": {},
     "sharding.rules": {},
-    "models.base": {"shape_structs": DRY_RUN},
+    "models.base": {},
     "models.layers": {},
     "models.attention": {},
     "models.moe": {},
@@ -41,7 +43,7 @@ LM_MODULES = {
     "models.rglru": {},
     "models.transformer": {},
     "models.whisper": {},
-    "models.model": {"input_specs": DRY_RUN},
+    "models.model": {},
     "serve.steps": {},
     "serve.engine": {},
     "launch.serve": {},
@@ -54,14 +56,19 @@ LM_MODULES = {
     "data.pipeline": {},
     "data.protein": {},
     "launch.train": {},
+    # the sharded LM path and the dry-run
+    "launch.mesh": {},
+    "launch.dryrun": {},
+    "analysis.roofline": {},
+    "analysis.report": {},
 }
-#: ``Model``'s methods that wait.
-MODEL_WAITING = {"param_structs": DRY_RUN, "cache_structs": DRY_RUN}
+#: ``Model``'s methods that are left out: none.
+MODEL_WAITING: dict = {}
 
 
 @pytest.mark.parametrize("package", ["core", "construction", "engine",
                                      "speculative", "scanservice", "serve",
-                                     "sharding"])
+                                     "sharding", "analysis"])
 def test_reference_names_exist_in_the_port(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")
@@ -70,6 +77,7 @@ def test_reference_names_exist_in_the_port(package):
         if name in EXCEPTIONS.get(package, ()):
             continue
         if isinstance(getattr(ref, name), types.ModuleType):
+            name = COUNTERPARTS.get(package, {}).get(name, name)
             if importlib.util.find_spec(f"repro_torch.{package}.{name}") \
                     is None:
                 missing.append(name)
@@ -105,6 +113,19 @@ def test_lm_module_names_exist_in_the_port(module):
     assert not missing, f"repro_torch.{module} lacks {missing}"
     stale = [n for n in waiting if hasattr(port, n)]
     assert not stale, stale
+
+
+def test_hlo_names_exist_in_its_counterpart():
+    """``analysis.hlo``'s public names (the ones its package exports and
+    the tests use) exist in ``analysis.trace``, taking a trace record."""
+    import repro.analysis as ja
+    from repro_torch.analysis import trace
+
+    hlo_names = {n for n in ja.__all__
+                 if getattr(ja, n).__module__ == "repro.analysis.hlo"}
+    assert hlo_names == {"collective_summary", "parse_collectives"}
+    assert not [n for n in hlo_names if not hasattr(trace, n)]
+    assert importlib.util.find_spec("repro_torch.analysis.hlo") is None
 
 
 def test_model_methods_and_arch_configs_exist_in_the_port():

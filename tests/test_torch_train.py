@@ -31,6 +31,9 @@ the CPU.
 import dataclasses
 import os
 import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -365,6 +368,14 @@ def test_launcher_trains_on_the_cpu_and_defaults_to_the_card(tmp_path,
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             launch_train.main(["--arch", "qwen1p5_0p5b", "--reduced"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="9c"):
-        launch_train.main(["--arch", "qwen1p5_0p5b", "--device", "cpu"])
+    # Several ranks join a torchrun world (tests/test_torch_sharded.py runs
+    # two): without its rendezvous address, the launcher says so.
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK")}
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen1p5_0p5b", "--reduced", "--steps", "1", "--device", "cpu"],
+        env={**env, "WORLD_SIZE": "2", "RANK": "0",
+             "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "MASTER_ADDR" in r.stderr, r.stderr[-2000:]
