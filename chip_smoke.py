@@ -124,6 +124,11 @@ Phases, in order (any failure raises and exits non-zero):
    from the same numpy weights (loss, grad norm, Adam's first moment and
    the updated parameters within the CPU tests' bounds) (5 steps and 1
    protein step, not more, to leave phase 11 room in the script's time);
+   once the timed steps are done, in a subprocess without the card (beside
+   the resume, the protein run and the card-vs-CPU step), ``launch.dryrun
+   --one-device`` traces the same step (qwen's run, 4 rows) on fake
+   tensors: its arguments plus its temporaries' high water within 10 % of
+   the steps' ``torch.cuda.max_memory_allocated()``;
 11. the sharded LM path over DTensor, launch counts at 0 before it and
    read after (it launches none of the seven kernels): (a) qwen1.5-0.5B at
    its published size on a one-rank NCCL mesh (1, 1) ("data", "model"):
@@ -136,12 +141,15 @@ Phases, in order (any failure raises and exits non-zero):
    published width cut to 2 layers (f32, seq 1,024, 4 rows) for a forward
    within 1e-4 of one device, one train step within the CPU tests' bounds
    and a greedy decode with equal tokens; granite_moe_1b's MoE layer at
-   published width against ``_moe_local`` run on each data shard; a
-   checkpoint saved on (2, 1) restored bit-equal onto (1, 2) and onto one
-   device; each run's collectives printed; (c) ``launch.dryrun`` of
-   qwen1.5-0.5B x {train_4k, decode_32k} on a fake 16 x 16 mesh, in
-   subprocesses without the card while (a) and (b) run: FLOPs and
-   collectives present, the argument bytes those of the rules' shards;
+   published width against ``_moe_local`` run on each data shard; on
+   (1, 2), yi_34b at reduced width under its own rules (the residual
+   stream's sequence over ``model``): a forward and a train step against
+   one device; a checkpoint saved on (2, 1) restored bit-equal onto (1, 2)
+   and onto one device; each run's collectives printed; (c)
+   ``launch.dryrun`` of qwen1.5-0.5B x {train_4k, decode_32k} and yi_34b x
+   decode_32k on a fake 16 x 16 mesh, in subprocesses without the card
+   while (a) and (b) run: FLOPs and collectives present, the argument
+   bytes those of the rules' shards, no negative count;
 12. with ``--profile`` only: trace one compile and one scan per budget, one
    ``stream`` of the single-pattern phase, the speculative phase's repeat
    scans beside enumeration's and its stream, prefill and decode steps of
@@ -2318,12 +2326,13 @@ def free_cuda(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def train_qwen(torch, dev, card: str, workdir: str) -> dict:
+def train_qwen(torch, dev, card: str, workdir: str, after_fit=None) -> dict:
     """(a) qwen1.5-0.5B from random weights, LM_TRAIN_STEPS steps through
     ``Trainer.fit`` on the synthetic source, checkpoints every
     LM_TRAIN_EVERY steps; (b) a second trainer resumes from step
     LM_TRAIN_EVERY and runs to the end: its parameters and optimizer state
-    against the uninterrupted run's last checkpoint."""
+    against the uninterrupted run's last checkpoint. ``after_fit`` is
+    called once (a)'s timed steps are done."""
     import math
     import shutil
 
@@ -2337,6 +2346,7 @@ def train_qwen(torch, dev, card: str, workdir: str) -> dict:
     ckpt = os.path.join(workdir, "straight")
     run = lm_train_run(ckpt)
     cfg = run.model
+    held = torch.cuda.memory_allocated()    # by the phases before this one
     tr = lm_trainer(run, dev)
     tr.init_state()
     held_out = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
@@ -2346,6 +2356,8 @@ def train_qwen(torch, dev, card: str, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     out, wall = timed(torch, lambda: tr.fit(LM_TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated()
+    if after_fit:
+        after_fit()
     eval_after = float(evaluate(tr.params, held_out))
     log = out["log"]
     losses = [m["loss"] for m in log]
@@ -2367,6 +2379,7 @@ def train_qwen(torch, dev, card: str, workdir: str) -> dict:
                losses=losses, grad_norms=norms, step_s=dts, steady_step_s=steady,
                held_out_loss=[eval_before, eval_after],
                tokens_per_s=tokens / steady, peak_bytes=peak, fit_wall_s=wall,
+               held_before_bytes=held,
                model_flops=model_flops, executed_flops=exec_flops,
                model_tflops_per_s=model_flops / steady / 1e12,
                executed_tflops_per_s=exec_flops / steady / 1e12,
@@ -2576,6 +2589,56 @@ def train_card_against_cpu(torch, dev) -> dict:
     return out
 
 
+#: The dry-run's estimate of the qwen step's memory (its arguments and the
+#: high water of its temporaries, traced on fake tensors) against the
+#: card's ``torch.cuda.max_memory_allocated()`` over the steps: within
+#: this share of the measured peak (stated before its first run).
+LM_TRAIN_MEMORY_TOL = 0.10
+
+
+def train_estimate(proc, tmp: str, peak: int, held: int, card: str
+                   ) -> dict:
+    """The one-device dry-run of phase 10's qwen step (``proc``), finished:
+    its arguments plus temporaries against the measured ``peak`` bytes
+    (``held`` of them allocated before the trainer was built)."""
+    from repro_torch.launch.dryrun import cell_file_name
+
+    t0 = time.perf_counter()
+    proc.wait(timeout=900)
+    wait = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"{LM_ARCH}__train_4k.log")) as f:
+        log = f.read()
+    check(proc.returncode == 0, f"lm_train: the one-device dry-run "
+          f"failed:\n{log[-3000:]}")
+    with open(os.path.join(tmp, cell_file_name(LM_ARCH, "train_4k", False,
+                                               one_device=True))) as f:
+        cell = json.load(f)
+    args = sum(cell["memory"]["argument_bytes"].values())
+    temp = cell["trace_stats"]["peak_temp_bytes"]
+    err = (args + temp - peak) / peak
+    check(abs(err) <= LM_TRAIN_MEMORY_TOL,
+          f"lm_train: the dry-run's memory estimate {(args + temp) / 2**30:.2f}"
+          f" GiB is {err:+.1%} of the measured peak {peak / 2**30:.2f} GiB "
+          f"(bound {LM_TRAIN_MEMORY_TOL:.0%})")
+    print(f"[lm_train] the dry-run's estimate of this step on one device "
+          f"({LM_ARCH}, {cell['global_batch']} rows in "
+          f"{cell['micro_batches']} micro-batches, traced on fake tensors "
+          f"at {cell['traced_groups']} of {cell['groups']} layer groups and "
+          f"extrapolated, without the card; traced in {cell['trace_s']} s "
+          f"after the timed steps, beside the rest of the phase, which then "
+          f"waited {wait:.1f} s for it): arguments {args / 2**30:.2f} GiB + "
+          f"temporaries {temp / 2**30:.2f} GiB = {(args + temp) / 2**30:.2f}"
+          f" GiB against torch.cuda.max_memory_allocated() over the steps "
+          f"{peak / 2**30:.2f} GiB: {err:+.1%} (bound "
+          f"{LM_TRAIN_MEMORY_TOL:.0%}; {held / 2**30:.2f} GiB of the peak "
+          f"were allocated before the trainer was built, by earlier phases, "
+          f"which the estimate leaves out) ({card})", flush=True)
+    return dict(argument_bytes=args, temp_bytes=temp, peak_bytes=peak,
+                held_before_bytes=held,
+                rel_err=err, trace_s=cell["trace_s"], wait_s=wait,
+                traced_groups=cell["traced_groups"])
+
+
 def lm_train_path(torch, ops, dev, card: str) -> tuple:
     """Phase 10: the LM training path. Launch counts at 0 before its runs,
     read after: (a) and (b) launch none of the seven kernels, (c) builds
@@ -2589,12 +2652,25 @@ def lm_train_path(torch, ops, dev, card: str) -> tuple:
         free = shutil.disk_usage(workdir).free
         print(f"[lm_train] checkpoints under a temporary directory, "
               f"{free / 2**30:.0f} GiB free", flush=True)
-        qwen = train_qwen(torch, dev, card, workdir)
-        synthetic = {**ops.launches, **ops.form_launches}
-        check(not any(synthetic.values()),
-              f"qwen on the synthetic source launched SFA kernels {synthetic}")
-        protein, trainer = train_protein(torch, ops, dev, card, workdir)
-    host = train_card_against_cpu(torch, dev)
+        # the dry-run's estimate runs on the host's CPU: started once the
+        # timed steps are done, beside the resume and the rest of the phase
+        est = []
+        try:
+            qwen = train_qwen(torch, dev, card, workdir, lambda: est.append(
+                start_dryrun_cell(workdir, LM_ARCH, "train_4k",
+                                  "--one-device", "--global-batch",
+                                  str(LM_TRAIN_BATCH))))
+            synthetic = {**ops.launches, **ops.form_launches}
+            check(not any(synthetic.values()), f"qwen on the synthetic "
+                  f"source launched SFA kernels {synthetic}")
+            protein, trainer = train_protein(torch, ops, dev, card, workdir)
+            host = train_card_against_cpu(torch, dev)
+            qwen["estimate"] = train_estimate(
+                est[0], workdir, qwen["peak_bytes"],
+                qwen["held_before_bytes"], card)
+        finally:
+            if est and est[0].poll() is None:
+                est[0].kill()
     launches = {**ops.launches, **ops.form_launches}
     wall = time.perf_counter() - t0
     print(f"[lm_train] phase wall {wall:.1f} s; kernel launches {launches}",
@@ -2624,8 +2700,13 @@ LM_MOE_TOL = 1e-5
 #: bound for optimizer state (tests/test_torch_train.py: twice the
 #: gradients' 1e-4 of a leaf's largest entry).
 LM_MOMENT_TOL = 2 * TRAIN_GRAD_TOL
-#: (c) the dry-run's cells of qwen1.5-0.5B.
-LM_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+#: (b) yi_34b at reduced width under its own rules, on (1, 2), at this
+#: sequence length (4 rows).
+LM_TWO_YI, LM_YI_SEQ = "yi_34b", 256
+#: (c) the dry-run's cells: qwen1.5-0.5B's two, and yi_34b's decode (its
+#: rules split the stream's sequence and, serving, the head_dim).
+LM_DRYRUN_CELLS = ((LM_ARCH, "train_4k"), (LM_ARCH, "decode_32k"),
+                   ("yi_34b", "decode_32k"))
 
 
 def host_gloo_backend():
@@ -3114,6 +3195,9 @@ def sharded_worker(rank: int, workdir: str, device: str = "cuda") -> None:
                 res[f"{mname} moe layer"] = dict(
                     y=lm_rel(wy, y), aux=abs(float(waux) - aux) / float(waux))
         del lp, xd, y
+        if mname == "1x2":
+            res.update(yi_on_two_ranks(torch, mesh, rank, dev, traced,
+                                       workdir))
 
     # the (2, 1) checkpoint onto (1, 2), and onto one device
     mesh12 = make_mesh((1, 2), ("data", "model"), device=device)
@@ -3139,6 +3223,67 @@ def sharded_worker(rank: int, workdir: str, device: str = "cuda") -> None:
             json.dump(dict(results=res, collectives=colls, walls=walls), f,
                       default=float)
     dist.destroy_process_group()
+
+
+def yi_two_rank_cfg():
+    """LM_TWO_YI at reduced width, in f32, under its own rules: the
+    residual stream's sequence over ``model``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(lm_reduced_cfg(LM_TWO_YI), sharding_overrides=(
+        get_config(LM_TWO_YI).sharding_overrides))
+
+
+def yi_on_two_ranks(torch, mesh, rank: int, dev, traced, workdir) -> dict:
+    """(b) on ``mesh``: LM_TWO_YI's forward and one train step, rank 0's
+    held to the one-device run -> {"<mesh> yi forward": rel. error,
+    "<mesh> yi train step": step_against's}."""
+    from repro_torch.config import HOST_MESH, RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import local_rows, to_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import Dist
+    from repro_torch.train.steps import make_train_step
+
+    cfg = yi_two_rank_cfg()
+    d = sharded_rules(mesh, cfg)
+    specs = build_model(cfg).param_specs()
+    weights = numpy_weights(torch, specs, SEED + 2)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        1, cfg.vocab_size, (LM_TWO_ROWS, LM_YI_SEQ + 1)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous().to(dev),
+             "labels": toks[:, 1:].contiguous().to(dev)}
+    start, n = local_rows(d, LM_TWO_ROWS)
+    rows = {k: to_mesh(v[start:start + n], d) for k, v in batch.items()}
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "t", LM_YI_SEQ, LM_TWO_ROWS, "train"), mesh=HOST_MESH,
+        optimizer=lm_train_run(workdir).optimizer, micro_batches=2)
+    name = "x".join(str(mesh.size(i)) for i in range(mesh.ndim))
+    model = build_model(cfg)
+    model.load(tree_to(torch, weights, dev), d)
+    with torch.no_grad():
+        logits = full_tree(traced(f"{name} yi forward", lambda: model.forward(
+            None, rows["tokens"], d)[0]))
+    params = model.load(tree_to(torch, weights, dev), d)
+    step, opt = make_train_step(model, run, d)
+    state = opt.init(params, specs, d)
+    got = traced(f"{name} yi train step", lambda: step(params, state, 1,
+                                                        rows))
+    got = (full_tree(got[0]), full_tree(got[1]), got[2])
+    if rank:
+        return {}
+    one = build_model(cfg)
+    p1 = one.load(tree_to(torch, weights, dev))
+    with torch.no_grad():
+        want = one.forward(p1, batch["tokens"], Dist())[0]
+    out = {f"{name} yi forward": lm_rel(want, logits)}
+    s1, o1 = make_train_step(one, run, Dist())
+    p1 = one.load(tree_to(torch, weights, dev))
+    want = s1(p1, o1.init(p1, specs), 1, batch)
+    out[f"{name} yi train step"] = step_against(torch, want, got,
+                                                float(want[2]["lr"]))
+    return out
 
 
 def sharded_two_ranks(torch, card: str, device: str = "cuda") -> dict:
@@ -3197,6 +3342,26 @@ def sharded_two_ranks(torch, card: str, device: str = "cuda") -> dict:
                   f"{c['operand_bytes'] / 1e6:.2f} MB operands a rank "
                   f"{c['per_op']}; wall {walls[f'{m} {run}']:.2f} s",
                   flush=True)
+    fwd, tr = res["1x2 yi forward"], res["1x2 yi train step"]
+    check(fwd <= LM_TWO_FWD_TOL,
+          f"lm_sharded (b) 1x2: {LM_TWO_YI} f32 forward {fwd:.3e} from one "
+          f"device")
+    check(tr["loss"] <= TRAIN_LOSS_TOL and tr["grad_norm"] <= TRAIN_NORM_TOL
+          and tr["moment"] <= LM_MOMENT_TOL and tr["param_over_bound"] <= 1.0,
+          f"lm_sharded (b) 1x2: {LM_TWO_YI} train step against one device "
+          f"{tr}")
+    print(f"[lm_sharded] (b) 1x2 mesh: {LM_TWO_YI} at reduced width under "
+          f"its own rules (the stream's sequence over model; f32, seq "
+          f"{LM_YI_SEQ}, {LM_TWO_ROWS} rows): forward {fwd:.2e} from one "
+          f"device (bound {LM_TWO_FWD_TOL}); train step loss "
+          f"{tr['loss']:.2e}, grad norm {tr['grad_norm']:.2e}, moment "
+          f"{tr['moment']:.2e} (bound {LM_MOMENT_TOL}), parameters at "
+          f"{tr['param_over_bound']:.2f} of their bound", flush=True)
+    for run in ("yi forward", "yi train step"):
+        c = colls[f"1x2 {run}"]
+        print(f"[lm_sharded] (b) 1x2 {run}: {c['count']} collectives, "
+              f"{c['operand_bytes'] / 1e6:.2f} MB operands a rank "
+              f"{c['per_op']}; wall {walls[f'1x2 {run}']:.2f} s", flush=True)
     ck = res["checkpoint"]
     check(ck["onto_1x2"] and ck["onto_one_device"]
           and any("Shard" in p for p in ck["placements_1x2"]),
@@ -3227,21 +3392,36 @@ def rank0_local_bytes(specs, rules, names, sizes) -> int:
     return total
 
 
-def start_dryrun(tmp: str) -> dict:
-    """(c), started: ``launch.dryrun`` for qwen1.5-0.5B's LM_DRYRUN_SHAPES
-    on the fake 16 x 16 mesh into ``tmp``, one process a cell, without the
-    card (``CUDA_VISIBLE_DEVICES`` empty) -> {shape: process}."""
+def start_dryrun_cell(tmp: str, arch: str, shape: str, *extra):
+    """``launch.dryrun`` of one cell into ``tmp``, in a process without
+    the card (``CUDA_VISIBLE_DEVICES`` empty, one intra-op thread), its
+    log in ``tmp`` (not read meanwhile) -> the process."""
     here = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.path.join(here, "src")}
-    procs = {}
-    for s in LM_DRYRUN_SHAPES:                  # logs to files: not read
-        with open(os.path.join(tmp, f"{s}.log"), "w") as log:   # meanwhile
-            procs[s] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 LM_ARCH, "--shape", s, "--out", tmp], env=env, stdout=log,
-                stderr=subprocess.STDOUT)
-    return procs
+    with open(os.path.join(tmp, f"{arch}__{shape}.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", tmp, *extra], env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+
+
+def start_dryrun(tmp: str) -> dict:
+    """(c), started: ``launch.dryrun`` of LM_DRYRUN_CELLS on the fake
+    16 x 16 mesh, one process a cell -> {(arch, shape): process}."""
+    return {c: start_dryrun_cell(tmp, *c) for c in LM_DRYRUN_CELLS}
+
+
+def negative_counts(tree, path: str = "") -> list:
+    """The paths of the numbers below 0 in a cell's JSON."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in negative_counts(v, f"{path}{k}/")]
+    if isinstance(tree, list):
+        return [q for i, v in enumerate(tree)
+                for q in negative_counts(v, f"{path}{i}/")]
+    ok = isinstance(tree, bool) or not isinstance(tree, (int, float))
+    return [] if ok or tree >= 0 else [path]
 
 
 def sharded_dryrun(torch, card: str, procs: dict, tmp: str,
@@ -3259,15 +3439,15 @@ def sharded_dryrun(torch, card: str, procs: dict, tmp: str,
     for p in procs.values():
         p.wait(timeout=600)
     wall = time.perf_counter() - t0
-    for s, p in procs.items():
-        with open(os.path.join(tmp, f"{s}.log")) as f:
+    for (arch, s), p in procs.items():
+        with open(os.path.join(tmp, f"{arch}__{s}.log")) as f:
             log = f.read()
-        check(p.returncode == 0, f"lm_sharded (c): dryrun {s} failed:\n"
-              f"{log[-3000:]}")
-        with open(os.path.join(tmp, cell_file_name(LM_ARCH, s, False))) as f:
-            out[s] = json.load(f)
-    for s, cell in out.items():
-        run = get_run(LM_ARCH, s, mesh_config())
+        check(p.returncode == 0, f"lm_sharded (c): dryrun {arch} x {s} "
+              f"failed:\n{log[-3000:]}")
+        with open(os.path.join(tmp, cell_file_name(arch, s, False))) as f:
+            out[arch, s] = json.load(f)
+    for (arch, s), cell in out.items():
+        run = get_run(arch, s, mesh_config())
         model = build_model(run.model)
         rules = cell_rules(run.model, run.shape, types_mesh(names, sizes))
         specs = {"params": model.param_specs()}
@@ -3280,14 +3460,18 @@ def sharded_dryrun(torch, card: str, procs: dict, tmp: str,
         want = rank0_local_bytes(specs, rules, names, sizes)
         arg = cell["memory"]["argument_bytes"]
         got = sum(v for k, v in arg.items() if k != "inputs")
-        st, roof = cell["trace_stats"], cell["roofline"]
+        st, roof, mem = cell["trace_stats"], cell["roofline"], cell["memory"]
         check(st["flops"] > 0 and st["coll_count"] > 0,
-              f"lm_sharded (c) {s}: FLOPs and collectives {st}")
-        check(got == want, f"lm_sharded (c) {s}: argument bytes {got} "
-              f"against the rules' local shards {want}")
-        print(f"[lm_sharded] (c) dry-run {LM_ARCH} x {s} on a fake 16 x 16 "
-              f"mesh (no card): {cell['memory']['argument_gb']:.3f} GB a "
-              f"device (fits 80 GB: {cell['memory']['fits_80gb']}), "
+              f"lm_sharded (c) {arch} x {s}: FLOPs and collectives {st}")
+        check(got == want, f"lm_sharded (c) {arch} x {s}: argument bytes "
+              f"{got} against the rules' local shards {want}")
+        neg = negative_counts(cell)
+        check(not neg and mem["temp_gb"] > 0, f"lm_sharded (c) {arch} x "
+              f"{s}: negative counts {neg}, temporaries {mem['temp_gb']}")
+        print(f"[lm_sharded] (c) dry-run {arch} x {s} on a fake 16 x 16 "
+              f"mesh (no card): {mem['argument_gb']:.3f} GB of arguments "
+              f"+ {mem['temp_gb']:.3f} GB of temporaries a device (fits 80 "
+              f"GB: {mem['fits_80gb']}), "
               f"{st['flops']:.3e} FLOPs, {st['coll_count']} collectives, "
               f"{st['coll_operand_bytes'] / 1e9:.3f} GB collective operands "
               f"a device; roofline estimate (H100 constants, not measured) "
@@ -3296,9 +3480,10 @@ def sharded_dryrun(torch, card: str, procs: dict, tmp: str,
               f"{roof['collective_s']:.3e} s: {roof['dominant']}-bound; "
               f"traced at {cell['traced_groups']} of {cell['groups']} "
               f"groups in {cell['trace_s']} s", flush=True)
-    print(f"[lm_sharded] (c) both cells done {wall:.1f} s after their start "
-          f"(beside (a) and (b)) ({card})", flush=True)
-    return dict(cells=out, wall_s=wall)
+    print(f"[lm_sharded] (c) all {len(out)} cells done {wall:.1f} s after "
+          f"their start (beside (a) and (b)) ({card})", flush=True)
+    return dict(cells={f"{a} x {s}": c for (a, s), c in out.items()},
+                wall_s=wall)
 
 
 def types_mesh(names, sizes):
@@ -3549,6 +3734,12 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="add traced runs: device time by kernel, host "
                              "time by operation")
+    parser.add_argument("--lm-train-walls", action="store_true",
+                        help="run only phase 10's qwen steps and resume "
+                             "(no kernel build, no result line): to hold "
+                             "two trees' step walls against each other, "
+                             "copy this script beside each tree's src/ and "
+                             "run both on one machine, one after the other")
     args = parser.parse_args(argv)
 
     import torch
@@ -3571,6 +3762,14 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     card = card_line()
     print(card, flush=True)
+    if args.lm_train_walls:
+        with tempfile.TemporaryDirectory() as workdir:
+            res = train_qwen(torch, dev, card, workdir)
+        print(json.dumps({"lm_train_walls": {
+            k: res[k] for k in ("step_s", "steady_step_s", "tokens_per_s",
+                                "peak_bytes", "fit_wall_s", "resume_wall_s")},
+            "tree": here, "card": card}), flush=True)
+        return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 

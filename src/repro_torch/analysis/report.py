@@ -5,6 +5,10 @@ Every dry-run cell saves its per-device trace counts
 the roofline (``roofline_terms``, H100 constants) to them, so a change of
 constants never requires tracing the cells again, and renders the tables
 ``PERF.md`` records. The roofline terms are estimates, not measurements.
+A cell's memory is a rank's arguments plus the step's temporaries
+(``temp_gb``: the eager high-water mark of the live tensors the step
+makes, ``analysis/trace.py``; not XLA's buffer assignment), and "(NO)"
+marks a sum past the card's 80 GB.
 
 Usage:
   python -m repro_torch.analysis.report --reanalyze   # refresh JSONs' rooflines
@@ -21,6 +25,8 @@ RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 
 def reanalyze(results_dir: Path = RESULTS) -> None:
+    import dataclasses
+
     from ..config import SHAPES
     from ..configs import get_config
     from .roofline import roofline_terms
@@ -30,8 +36,12 @@ def reanalyze(results_dir: Path = RESULTS) -> None:
         if data.get("status") != "ok":
             continue
         st = data["trace_stats"]
+        shape = SHAPES[data["shape"]]
+        if data.get("global_batch"):            # a cut batch (--global-batch)
+            shape = dataclasses.replace(shape,
+                                        global_batch=data["global_batch"])
         roof = roofline_terms(
-            get_config(data["arch"]), SHAPES[data["shape"]],
+            get_config(data["arch"]), shape,
             per_device_flops=st["flops"],
             per_device_bytes=st["traffic_bytes"],
             per_device_coll_bytes=st["coll_operand_bytes"],
@@ -46,15 +56,19 @@ def reanalyze(results_dir: Path = RESULTS) -> None:
 
 
 def _cell(d: dict) -> str:
-    """One cell: a rank's argument GB and whether it fits 80 GB, the
-    dominant roofline term and the three terms (estimates, seconds),
-    per-device FLOPs and collectives."""
+    """One cell: a rank's argument GB and the step's temporaries (where
+    the cell has them) and whether they fit 80 GB, the dominant roofline
+    term and the three terms (estimates, seconds), per-device FLOPs and
+    collectives."""
     if d.get("status") == "skipped":
         return "skipped"
     if d.get("status") != "ok":
         return "FAILED"
     m, r, st = d["memory"], d["roofline"], d["trace_stats"]
-    return (f"{m['argument_gb']:.2f} GB{'' if m['fits_80gb'] else ' (NO)'}; "
+    temp = ("" if m.get("temp_gb") is None
+            else f" + {m['temp_gb']:.2f} GB temp")
+    return (f"{m['argument_gb']:.2f} GB{temp}"
+            f"{'' if m['fits_80gb'] else ' (NO)'}; "
             f"{r['dominant']}: c {r['compute_s']:.3g} / m {r['memory_s']:.3g}"
             f" / x {r['collective_s']:.3g} s; {st['flops']:.2e} FLOPs, "
             f"{st['coll_count']} coll. {st['coll_operand_bytes'] / 1e9:.3g}"

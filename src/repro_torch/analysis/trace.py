@@ -21,15 +21,30 @@ step as it is dispatched, under a ``TorchDispatchMode``:
       all-gather: (N-1)/N·out   reduce-scatter: (N-1)/N·in
       all-reduce: 2(N-1)/N·out  all-to-all: (N-1)/N·out   broadcast: out
 
+  * live bytes: a high-water mark of the bytes of the tensors the step
+    makes and still holds (``peak_temp_bytes``): an op's output counts
+    from the op that makes its storage until that storage is freed (a
+    ``weakref.finalize`` on it); a view or an in-place write shares its
+    input's storage and counts nothing, and neither do the step's
+    arguments. Autograd's saved tensors and a checkpoint's recomputation
+    count as they live in an eager run. It is the eager program's high
+    water, not XLA's buffer assignment of a fused one, and leaves out
+    what no op returns (a library's workspace, the allocator's rounding).
+
 DTensor's sharding propagation infers output shapes by running the global
-op on ``meta`` tensors or on fake tensors of its own ``FakeTensorMode``:
-those run no kernel and are not recorded. The dry-run's own fake tensors
-(``fake_mode``) are recorded: nothing is allocated, and the counts are
-those of a real run.
+op on ``meta`` tensors or on fake tensors (its own, or, the first time it
+meets a shape, the dry-run's): those run no kernel and are not recorded,
+nor is anything DTensor's propagation or ``DeviceMesh`` dispatches for
+themselves (caches filled the first time, so a process's first step would
+count more than the next). The dry-run's own fake tensors (``fake_mode``)
+are recorded: nothing is allocated, and the counts are those of a real
+run.
 """
 
 from __future__ import annotations
 
+import sys
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
 
@@ -57,6 +72,9 @@ _COLLECTIVES = {
     "broadcast_": "broadcast",
     "scatter_": "broadcast",
 }
+#: DTensor's own bookkeeping: ops dispatched from these modules are not the
+#: step's (``_bookkeeping``).
+_BOOKKEEPING = ("_sharding_prop.py", "device_mesh.py")
 #: Ops that move no data: allocations, metadata, waits.
 _NO_TRAFFIC = {"empty", "empty_strided", "new_empty", "new_empty_strided",
                "detach", "alias", "lift_fresh", "_local_scalar_dense",
@@ -70,6 +88,46 @@ def _tensors(tree) -> list:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _stack(lines: bool) -> tuple:
+    """One walk of the Python stack above the dispatch -> (whether DTensor's
+    sharding propagation or ``DeviceMesh`` is on it, so the op is theirs,
+    not the step's; with ``lines``, this package's lines on it, innermost
+    first, else ``None``)."""
+    out = [] if lines else None
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.endswith(_BOOKKEEPING):
+            return True, out
+        if lines and "repro_torch" in name and not name.endswith("trace.py"):
+            out.append(f"{name.rsplit('/', 1)[-1]}:{f.f_lineno}")
+        f = f.f_back
+    return False, out
+
+
+def _site(func, lines: list, outs) -> str:
+    """Where an allocation happens: the op, the lines of this package on
+    the Python stack, and the outputs' shapes but their first dim (a
+    stacked weight's leading dim is the depth). A repeated layer's
+    allocations share a site."""
+    return f"{func}|{'<'.join(lines)}|{[tuple(t.shape[1:]) for t in outs]}"
+
+
+def _storages(tree) -> list:
+    """The storages of the tensors in ``tree`` (a ``DTensor``'s local
+    shard's), each once. A storage's Python object lives as long as the
+    storage itself, so its ``id`` names it while it lives."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for t in _tensors(tree):
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        st = t.untyped_storage()
+        out[id(st)] = st
+    return list(out.values())
 
 
 def _group_size(args) -> int:
@@ -110,6 +168,7 @@ class TraceStats:
     coll_wire_bytes: int = 0
     coll_count: int = 0
     ops: int = 0                      # ops recorded (kernels, in eager mode)
+    peak_temp_bytes: int = 0          # high water of the step's own tensors
     per_op: dict = field(default_factory=dict)
     collectives: list = field(default_factory=list)
     flops_by_op: dict = field(default_factory=dict)
@@ -122,15 +181,20 @@ class TraceStats:
             "coll_wire_bytes": self.coll_wire_bytes,
             "coll_count": self.coll_count,
             "ops": self.ops,
+            "peak_temp_bytes": self.peak_temp_bytes,
             "per_op": self.per_op,
             "flops_by_op": self.flops_by_op,
         }
 
 
 class StepTrace(TorchDispatchMode):
-    """Records what runs under it into ``self.stats`` (a ``TraceStats``)."""
+    """Records what runs under it into ``self.stats`` (a ``TraceStats``);
+    ``args``: the step's arguments, whose storages are never the step's
+    own; ``sites``: a dict to fill with the live bytes at each allocation
+    site's high water (``_site``; the dry-run extrapolates the high water
+    site by site), or ``None``."""
 
-    def __init__(self, fake_mode=None):
+    def __init__(self, fake_mode=None, args=(), sites=None):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -141,6 +205,37 @@ class StepTrace(TorchDispatchMode):
         self._per_op = defaultdict(lambda: {"count": 0, "operand_bytes": 0,
                                             "wire_bytes": 0})
         self._flops_by_op = defaultdict(int)
+        self._args = {id(st) for st in _storages(args)}
+        self._held: set = set()             # ids of the live storages counted
+        self._live = 0
+        self._sites = sites
+
+    def _take(self, func, ins, outs, lines) -> None:
+        """Count each output storage the op made (not an input's, not an
+        argument's, not one already counted) until it is freed; the live
+        bytes after it, at the high water and at its site (``lines``: the
+        op's lines of this package, when sites are kept)."""
+        inputs = {id(st) for st in _storages(ins)}
+        made = False
+        for st in _storages(outs):
+            key = id(st)
+            if key in inputs or key in self._args or key in self._held:
+                continue
+            n = st.nbytes()
+            self._held.add(key)
+            self._live += n
+            made = True
+            weakref.finalize(st, self._free, key, n)
+        if made:
+            st = self.stats
+            st.peak_temp_bytes = max(st.peak_temp_bytes, self._live)
+            if self._sites is not None:
+                site = _site(func, lines, outs)
+                self._sites[site] = max(self._sites.get(site, 0), self._live)
+
+    def _free(self, key: int, n: int) -> None:
+        self._held.discard(key)
+        self._live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -154,7 +249,12 @@ class StepTrace(TorchDispatchMode):
                 t, "fake_mode", self._fake_mode) is not self._fake_mode
                for t in ins):
             return out                      # shape inference, no kernel
-        self._record(func, args, kwargs, ins, _tensors(out), out)
+        theirs, lines = _stack(self._sites is not None)
+        if theirs:
+            return out
+        outs = _tensors(out)
+        self._record(func, args, kwargs, ins, outs, out)
+        self._take(func, ins, outs, lines)
         return out
 
     def _record(self, func, args, kwargs, ins, outs, out) -> None:
@@ -190,11 +290,11 @@ class StepTrace(TorchDispatchMode):
             st.flops_by_op = dict(self._flops_by_op)
 
 
-def trace_step(fn, *args, fake_mode=None) -> tuple:
+def trace_step(fn, *args, fake_mode=None, sites=None) -> tuple:
     """Run ``fn(*args)`` under a ``StepTrace`` -> (its result, the
     ``TraceStats``); ``fake_mode``: the ``FakeTensorMode`` of ``args``' fake
-    tensors, if they are fake."""
-    mode = StepTrace(fake_mode)
+    tensors, if they are fake; ``sites``: as ``StepTrace``'s."""
+    mode = StepTrace(fake_mode, args, sites)
     with mode:
         out = fn(*args)
     return out, mode.stats

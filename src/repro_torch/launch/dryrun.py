@@ -23,19 +23,31 @@ for real, on nothing:
 
 Depth: a model is a stack of identical groups (one cycle of its layer
 pattern; whisper: one encoder and one decoder layer), so every count is
-affine in the group count. A cell of more than two groups is traced at one
-group and at two and extrapolated to its depth (exact for FLOPs, traffic
-and collectives); the JSON names the traced depths. The argument bytes are
-the full-depth tree's local shards.
+affine in the group count. A cell of more than three groups is traced at
+two groups and at three and extrapolated to its depth (one group is no
+point of the line: ``TRACED_GROUPS``); the JSON names the traced depths.
+The high water of live bytes is the largest of each allocation site's
+live bytes extrapolated (the site of the high water may move with depth).
+The argument bytes are the full-depth tree's local shards. A trace leaves
+out DTensor's own bookkeeping (``analysis/trace.py``), so a cell's counts
+do not depend on what the process traced before; an extrapolated count
+below 0 raises rather than writing the cell.
 
 Memory: ``argument_gb`` is one rank's parameters, optimizer state, cache
-and inputs; ``fits_80gb`` holds them against the H100's 80 GB (the
-reference checks 16 GB of a v5e, with XLA's temporaries). A fake run has
-no allocator, so the step's temporaries are not measured: ``temp_gb`` is
-null.
+and inputs; ``temp_gb`` the step's temporaries, the high-water mark of
+the live tensors it makes (``analysis/trace.py``: an eager run's, not
+XLA's buffer assignment of a fused program, so not comparable with the
+reference's ``temp_gb``), extrapolated in depth like the counts;
+``fits_80gb`` holds their sum against the H100's 80 GB, the reference's
+rule (it checks 16 GB of a v5e).
+
+``--one-device`` traces the step on one device (no mesh, ``Dist()``) and
+``--global-batch`` cuts the batch: the estimate to hold against a card's
+allocator (``torch.cuda.max_memory_allocated``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1p5_0p5b --shape train_4k [--multi-pod]
+  python -m repro_torch.launch.dryrun --arch qwen1p5_0p5b --shape train_4k --one-device --global-batch 4
   python -m repro_torch.launch.dryrun --all [--multi-pod]   # subprocess per cell,
                                                            # one a CPU core at once
 """
@@ -105,11 +117,12 @@ def with_groups(cfg, g: int):
 
 
 def local_bytes(tree) -> int:
-    """One rank's bytes of a tree of (fake) ``DTensor``s."""
+    """One rank's bytes of a tree of (fake) ``DTensor``s (or, on one
+    device, tensors)."""
     from ..models.base import tree_leaves
 
-    return sum(t.to_local().numel() * t.element_size()
-               for t in tree_leaves(tree))
+    return sum(t.numel() * t.element_size() for t in (
+        getattr(t, "to_local", lambda t=t: t)() for t in tree_leaves(tree)))
 
 
 def cell_args(run, mesh, rules, fake):
@@ -134,9 +147,10 @@ def cell_args(run, mesh, rules, fake):
     return model, args
 
 
-def trace_cell(run, mesh, rules, fake):
+def trace_cell(run, mesh, rules, fake, sites=None):
     """Run the cell's step on fake ``DTensor``s under a ``StepTrace`` ->
-    ``TraceStats`` (rank 0's local ops)."""
+    ``TraceStats`` (rank 0's local ops); ``sites``: a dict to fill with the
+    live bytes at each allocation site's high water."""
     import torch
 
     from ..analysis.trace import trace_step
@@ -144,56 +158,98 @@ def trace_cell(run, mesh, rules, fake):
     from ..sharding.rules import Dist
     from ..train.steps import make_train_step
 
-    dist = Dist.for_mesh(mesh, rules)
+    dist = Dist(rules=rules) if mesh is None else Dist.for_mesh(mesh, rules)
     model, a = cell_args(run, mesh, rules, fake)
     x = a["inputs"]
     if run.shape.kind == "train":
         step_fn, _ = make_train_step(model, run, dist)
         _, stats = trace_step(step_fn, a["params"], a["opt_state"], 0, x,
-                              fake_mode=fake)
+                              fake_mode=fake, sites=sites)
     elif run.shape.kind == "prefill":
         step_fn = make_prefill_step(model, run, dist)
         with torch.no_grad():
             _, stats = trace_step(step_fn, a["params"], a["cache"], x,
-                                  fake_mode=fake)
+                                  fake_mode=fake, sites=sites)
     else:
         step_fn = make_decode_step(model, run, dist)
         with torch.no_grad():
             _, stats = trace_step(step_fn, a["params"], a["cache"],
-                                  x["tokens"], x["cache_pos"], fake_mode=fake)
+                                  x["tokens"], x["cache_pos"], fake_mode=fake,
+                                  sites=sites)
     return stats
 
 
-def _affine(one: dict, two: dict, g: int) -> dict:
-    """Counts at ``g`` groups from those at one and two (nested dicts of
-    numbers)."""
+#: The depths a deeper model is traced at. One group is no point of the
+#: line: a stacked weight of one group is gathered as a view, of several
+#: by a copy (``funcol``'s all-gather along a dim past the first).
+TRACED_GROUPS = (2, 3)
+
+
+def _affine(at: dict, nxt: dict, g: int, d: int, path: str = "") -> dict:
+    """Counts at ``g`` groups from those at ``d`` and ``d + 1`` (nested
+    dicts of numbers); a count below 0 raises ``ValueError``."""
     out = {}
-    for k in set(one) | set(two):
-        a, b = one.get(k, 0), two.get(k, 0)
+    for k in set(at) | set(nxt):
+        a, b = at.get(k, 0), nxt.get(k, 0)
         if isinstance(a, dict) or isinstance(b, dict):
-            out[k] = _affine(a or {}, b or {}, g)
+            out[k] = _affine(a or {}, b or {}, g, d, f"{path}{k}/")
         else:
-            out[k] = a + (g - 1) * (b - a)
+            out[k] = a + (g - d) * (b - a)
+            if out[k] < 0:
+                raise ValueError(f"{path}{k}: {a} at {d} groups, {b} at "
+                                 f"{d + 1} extrapolate to {out[k]} at {g}")
     return out
 
 
+def cell_stats(run, mesh, rules, fake) -> tuple:
+    """The step's counts at ``run``'s depth -> (stats JSON, the traced
+    depths): a model of more than TRACED_GROUPS[-1] groups is traced at
+    TRACED_GROUPS and extrapolated. The high water of live bytes is the
+    largest of the allocation sites' live bytes, each extrapolated (the
+    peak's site may move with depth: the largest of lines is no line)."""
+    G = groups_of(run.model)
+    if G <= TRACED_GROUPS[-1]:
+        return trace_cell(run, mesh, rules, fake).to_json(), [G]
+    d = TRACED_GROUPS[0]
+    a, b = {}, {}
+    at, nxt = (trace_cell(run.replace(model=with_groups(run.model, g)), mesh,
+                          rules, fake, sites).to_json()
+               for g, sites in zip(TRACED_GROUPS, (a, b)))
+    stats = _affine(at, nxt, G, d)
+    stats["peak_temp_bytes"] = max(a[s] + (G - d) * (b[s] - a[s])
+                                   for s in a if s in b)
+    return stats, list(TRACED_GROUPS)
+
+
 def build_cell(arch: str, shape_name: str, multi_pod: bool,
-               rule_overrides=None):
+               rule_overrides=None, one_device: bool = False,
+               global_batch: int | None = None):
     """-> (run, mesh, rules, fake mode, meta) of one cell, its fake world
-    started."""
+    started (``one_device``: no world, no mesh; ``global_batch``: the
+    batch cut to it)."""
     from ..configs import get_run
+    from ..models.model import build_model
+    from ..sharding.rules import Rules
     from .mesh import make_production_mesh, mesh_config
 
     run = get_run(arch, shape_name, mesh_config(multi_pod=multi_pod))
-    start_fake_world(512 if multi_pod else 256)
-    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
-    rules = cell_rules(run.model, run.shape, mesh, rule_overrides)
-    from ..models.model import build_model
-
+    if global_batch:
+        run = run.replace(shape=dataclasses.replace(
+            run.shape, global_batch=global_batch))
+    if one_device:
+        mesh = None
+        rules = Rules(mesh_axes=()).with_overrides(
+            run.model.sharding_overrides)
+    else:
+        start_fake_world(512 if multi_pod else 256)
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        rules = cell_rules(run.model, run.shape, mesh, rule_overrides)
     meta = {
         "arch": arch, "shape": shape_name,
-        "mesh": "2x16x16" if multi_pod else "16x16",
-        "n_devices": mesh.size(),
+        "mesh": "1" if one_device else "2x16x16" if multi_pod else "16x16",
+        "n_devices": 1 if one_device else mesh.size(),
+        "global_batch": run.shape.global_batch,
+        "micro_batches": run.micro_batches,
         "params_b": build_model(run.model).n_params() / 1e9,
         "kind": run.shape.kind,
     }
@@ -210,24 +266,20 @@ def fake_mode():
     return FakeTensorMode(allow_non_fake_inputs=True)
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path
+def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
+             one_device: bool = False, global_batch: int | None = None
              ) -> dict:
     from ..analysis.roofline import roofline_terms
 
     t0 = time.time()
-    run, mesh, rules, fake, meta = build_cell(arch, shape_name, multi_pod)
+    run, mesh, rules, fake, meta = build_cell(
+        arch, shape_name, multi_pod, one_device=one_device,
+        global_batch=global_batch)
     cfg, shape = run.model, run.shape
     _, full_args = cell_args(run, mesh, rules, fake)
     arg_bytes = {k: local_bytes(v) for k, v in full_args.items()}
     G = groups_of(cfg)
-    if G > 2:
-        depths = [1, 2]
-        one, two = (trace_cell(run.replace(model=with_groups(cfg, g)), mesh,
-                               rules, fake).to_json() for g in depths)
-        stats = _affine(one, two, G)
-    else:
-        depths = [G]
-        stats = trace_cell(run, mesh, rules, fake).to_json()
+    stats, depths = cell_stats(run, mesh, rules, fake)
     t_trace = time.time() - t0
     roof = roofline_terms(
         cfg, shape,
@@ -237,6 +289,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path
         n_chips=meta["n_devices"],
     )
     arg_gb = sum(arg_bytes.values()) / 1e9
+    temp_gb = stats["peak_temp_bytes"] / 1e9
     result = {
         **meta,
         "trace_s": round(t_trace, 1),
@@ -245,8 +298,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path
         "memory": {
             "argument_gb": arg_gb,
             "argument_bytes": arg_bytes,
-            "temp_gb": None,
-            "fits_80gb": arg_gb < DEVICE_GB,
+            "temp_gb": temp_gb,
+            "temp_note": "eager high-water mark of the step's live tensors "
+                         "(analysis/trace.py), not XLA's buffer assignment",
+            "fits_80gb": arg_gb + temp_gb < DEVICE_GB,
         },
         "trace_stats": stats,
         "counts": "per device: rank 0's local ops on its shards",
@@ -256,10 +311,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path
         "status": "ok",
     }
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / cell_file_name(arch, shape_name, multi_pod)).write_text(
-        json.dumps(result, indent=2))
+    (out_dir / cell_file_name(arch, shape_name, multi_pod, one_device)
+     ).write_text(json.dumps(result, indent=2))
     print(f"[{arch} x {shape_name}] OK  trace {t_trace:.0f}s "
-          f"args {arg_gb:.2f}GB fits80={result['memory']['fits_80gb']} "
+          f"args {arg_gb:.2f}GB temp {temp_gb:.2f}GB "
+          f"fits80={result['memory']['fits_80gb']} "
           f"flops/dev {stats['flops']:.3e} coll {stats['coll_count']} "
           f"({stats['coll_operand_bytes']:.3e} B) dominant={roof.dominant} "
           f"terms(c/m/x)=({roof.compute_s:.3e},{roof.memory_s:.3e},"
@@ -267,8 +323,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path
     return result
 
 
-def cell_file_name(arch: str, shape_name: str, multi_pod: bool) -> str:
-    return f"{arch}__{shape_name}__{'multipod' if multi_pod else 'pod'}.json"
+def cell_file_name(arch: str, shape_name: str, multi_pod: bool,
+                   one_device: bool = False) -> str:
+    where = "one" if one_device else "multipod" if multi_pod else "pod"
+    return f"{arch}__{shape_name}__{where}.json"
 
 
 def all_cells():
@@ -331,6 +389,10 @@ def main() -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=str(RESULTS))
     ap.add_argument("--timeout", type=int, default=3000)
+    ap.add_argument("--one-device", action="store_true",
+                    help="trace the step on one device, no mesh")
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="cut the shape's global batch to this")
     args = ap.parse_args()
     out_dir = Path(args.out)
 
@@ -341,7 +403,8 @@ def main() -> None:
         sys.exit(1 if failures else 0)
 
     try:
-        run_cell(args.arch, args.shape, args.multi_pod, out_dir)
+        run_cell(args.arch, args.shape, args.multi_pod, out_dir,
+                 one_device=args.one_device, global_batch=args.global_batch)
     except Exception:
         traceback.print_exc()
         sys.exit(1)

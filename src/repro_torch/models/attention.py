@@ -35,7 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..sharding.rules import Rules, constrain
+from ..sharding.rules import Rules, constrain, product
 from .base import ParamSpec
 from .layers import rmsnorm, rope
 
@@ -82,9 +82,14 @@ def attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
 def _project_qkv(params, x, cfg: ModelConfig, rules: Rules, positions,
                  apply_rope: bool = True):
     dtype = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    q, k, v = product("bsd,dhk->bshk", x,
+                      *(params[w].to(dtype) for w in ("wq", "wk", "wv")))
+    # The rules' layout before the bias, norms and rope, which act on whole
+    # heads: a head_dim the weights split (yi's serving rules) is gathered
+    # here, as the rules ask of q, k and v.
+    q = constrain(q, rules, "batch", "attn_seq", "heads_act", None)
+    k = constrain(k, rules, "batch", "attn_seq", None, None)
+    v = constrain(v, rules, "batch", "attn_seq", None, None)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
@@ -95,10 +100,8 @@ def _project_qkv(params, x, cfg: ModelConfig, rules: Rules, positions,
     if apply_rope:
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    q = constrain(q, rules, "batch", "attn_seq", "heads_act", None)
-    k = constrain(k, rules, "batch", "attn_seq", None, None)
-    v = constrain(v, rules, "batch", "attn_seq", None, None)
     return q, k, v
+
 
 
 # --------------------------------------------------------------------------
@@ -483,7 +486,7 @@ def attention_layer(
             new_cache = cache
 
     out = constrain(out, rules, "batch", "attn_seq", "heads_act", None)
-    proj = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    proj = product("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return constrain(proj, rules, "batch", "seq_act", "embed_act"), new_cache
 
 
@@ -495,20 +498,20 @@ def cross_attention_layer(
     rules: Rules,
 ) -> torch.Tensor:
     dtype = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    q = product("bsd,dhk->bshk", x, params["wq"].to(dtype))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dtype)
     k, v = enc_kv
     out = blockwise_attention(q, k, v, causal=False, softcap=0.0)
-    proj = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    proj = product("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return constrain(proj, rules, "batch", "seq_act", "embed_act")
 
 
 def encode_kv(params: dict, enc_states: torch.Tensor, cfg: ModelConfig) -> tuple:
     """Project encoder output to cross-attention K/V once (cached)."""
     dtype = enc_states.dtype
-    k = torch.einsum("bsd,dhk->bshk", enc_states, params["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", enc_states, params["wv"].to(dtype))
+    k, v = product("bsd,dhk->bshk", enc_states,
+                   params["wk"].to(dtype), params["wv"].to(dtype))
     if cfg.qkv_bias:
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)

@@ -216,12 +216,16 @@ def _fake_mode():
 def fake_dtensor(shape, dtype, mesh, placements, mode=None):
     """A ``DTensor`` of global ``shape`` whose local shard is a fake tensor
     of ``mode`` (the active ``FakeTensorMode`` by default): no bytes, no
-    collective."""
+    collective. Without a mesh (``None``): the fake tensor itself, on the
+    CPU (one device)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
     mode = mode or _fake_mode()
+    if mesh is None:
+        with mode:
+            return torch.empty(tuple(shape), dtype=dtype)
     local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh,
                                                      placements)
     with mode:

@@ -194,7 +194,12 @@ def blocks_in_run_order(params: dict, cfg: ModelConfig, cache: dict | None = Non
     block params, block cache | None)``; a block cache is a view of the
     stacked cache, so writing into it updates ``cache``."""
     n_groups = cfg.n_layers // len(pattern_of(cfg))
-    parts = [(tree_map(lambda t, g=g: t[g], params["blocks"]),
+    # The stacked weights are unbound once: under autograd the gradient of
+    # a stack is then one ``stack`` of the groups' gradients, where an
+    # index a group (``t[g]``) would add a stack-sized zero-filled tensor
+    # a group (quadratic in depth, in traffic and live bytes).
+    groups = tree_map(lambda t: t.unbind(0), params["blocks"])
+    parts = [(tree_map(lambda t, g=g: t[g], groups),
               tree_map(lambda t, g=g: t[g], cache["blocks"]) if cache else None)
              for g in range(n_groups)]
     if "tail" in params:

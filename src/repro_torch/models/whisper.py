@@ -97,6 +97,13 @@ def _remat(fn, cfg: ModelConfig, mode: str):
     return remat_wrap(fn, "full" if cfg.remat == "full" else "none", mode)
 
 
+def _unbind(stacked: dict) -> dict:
+    """The stacked layer weights unbound once, as ``transformer`` does:
+    under autograd an index a layer (``t[layer]``) would add a stack-sized
+    zero-filled gradient a layer (quadratic in depth)."""
+    return tree_map(lambda t: t.unbind(0), stacked)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, dist: Dist) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed embeddings -> encoder states."""
     B, S, d = frames.shape
@@ -117,8 +124,9 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, dist: Dist) -> torch.
         return x + mlp(bparams["ffn"], h2, cfg, dist.rules)
 
     run_layer = _remat(layer_fn, cfg, "train")
+    blocks = _unbind(params["enc_blocks"])
     for layer in range(cfg.n_encoder_layers):
-        x = run_layer(tree_map(lambda t: t[layer], params["enc_blocks"]), x)
+        x = run_layer(tree_map(lambda t: t[layer], blocks), x)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -178,9 +186,9 @@ def whisper_forward(
         return x + mlp(bparams["ffn"], h3, cfg, dist.rules)
 
     run_layer = _remat(layer_fn, cfg, mode)
+    blocks = _unbind(params["dec_blocks"])
     for layer in range(cfg.n_layers):
-        x = run_layer(tree_map(lambda t: t[layer], params["dec_blocks"]), x,
-                      layer)
+        x = run_layer(tree_map(lambda t: t[layer], blocks), x, layer)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, dist.rules, transpose=True)

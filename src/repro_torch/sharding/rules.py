@@ -19,6 +19,7 @@ passes through, as the reference's does without a mesh.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field, replace
 
 # Logical axis vocabulary. Weights and activations use disjoint names for the
@@ -81,7 +82,8 @@ class Rules:
     def placements(self, mesh, *logical_axes) -> list:
         """The ``DTensor`` placements of a tensor whose dims carry
         ``logical_axes``: one a mesh dim, ``Shard(d)`` where the rules put
-        tensor dim ``d`` on that mesh axis, else ``Replicate()``.
+        tensor dim ``d`` on that mesh axis, else ``Replicate()``; none
+        without a mesh (``None``: one device).
 
         The axes come from ``mesh.mesh_dim_names`` (those absent from the
         mesh drop out, as in ``resolve``). A tuple of mesh axes on one
@@ -91,7 +93,7 @@ class Rules:
         for a mesh axis on two tensor dims)."""
         from torch.distributed.tensor import Replicate, Shard
 
-        names = tuple(mesh.mesh_dim_names or ())
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
         rules = replace(self, mesh_axes=names)
         out: list = [Replicate()] * len(names)
         for d, logical in enumerate(logical_axes):
@@ -211,3 +213,124 @@ def constrain(x, rules: Rules, *axes):
     if tuple(want) == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def product(eq: str, x, *ws):
+    """The product of an activation ``x`` and each weight ``w`` (a tuple of
+    results when there are several), as the einsum equation ``eq`` labels
+    their dims, run as one matrix product (``_matmul``). Plain tensors go
+    straight to it.
+
+    On ``DTensor``s each product runs on each rank's shards under
+    ``local_map``, the placements of its result and of its gradients
+    stated, never through DTensor's strategy for the product: that
+    flattens dims together, and some PyTorch versions (2.11) refuse to
+    when a non-leading one is sharded (a sequence-sharded stream, a
+    head_dim-sharded weight). On each mesh dim:
+
+    * both operands split along dims the product keeps (the sequence and a
+      weight's output dim): the activation is gathered first, once for all
+      the weights — Megatron's sequence parallelism, the sequence gathered
+      before a product whose weight is split over ``model``;
+    * a contracted dim split in one operand is split alike in the other (a
+      local slice), and the result is a partial sum there;
+    * a kept dim split in one operand is split so in the result.
+
+    A dim the mesh does not split evenly takes DTensor's own strategy:
+    ``local_map`` infers global shapes from even shards."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    op = _matmul(eq)
+    if not any(isinstance(t, DTensor) for t in (x, *ws)):
+        outs = tuple(op(x, w) for w in ws)
+        return outs if len(ws) > 1 else outs[0]
+    mesh = next(t for t in (x, *ws) if isinstance(t, DTensor)).device_mesh
+    x, *ws = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        for t in (x, *ws))
+    ins, _ = eq.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    xp = [Replicate() if p.is_partial() else p for p in x.placements]
+    for w in ws:
+        for i, p in enumerate(w.placements):
+            a, b = _letter(xp[i], lx), _letter(p, lw)
+            if a is not None and b is not None and a != b:
+                xp[i] = Replicate()                 # gather the activation
+    x = x.redistribute(mesh, xp)
+    outs = tuple(_local_product(eq, op, x, w, mesh) for w in ws)
+    return outs if len(ws) > 1 else outs[0]
+
+
+def _matmul(eq: str):
+    """``eq`` (activation labels, weight labels -> result labels) as one
+    matrix product: the activation's kept dims lead, its contracted dims
+    trail, in the weight's order; the weight holds the contracted dims
+    first or last, and the result is the activation's kept dims then the
+    weight's. Anything else raises ``ValueError``."""
+    ins, lo = eq.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    con = "".join(c for c in lw if c in lx and c not in lo)
+    kx = lx[:len(lx) - len(con)]
+    kw = "".join(c for c in lw if c not in con)
+    first = lw == con + kw
+    if lx != kx + con or lo != kx + kw or not (first or lw == kw + con):
+        raise ValueError(f"{eq!r} is not one matrix product")
+    n, m = len(con), len(kw)
+
+    def op(x, w):
+        kept = w.shape[n:] if first else w.shape[:m]
+        if n > 1:
+            x = x.flatten(len(kx))
+        w = (w.flatten(0, n - 1).flatten(1) if first
+             else w.flatten(m).flatten(0, m - 1).T)
+        y = x @ w
+        return y.unflatten(-1, kept) if m > 1 else y
+    return op
+
+
+def _letter(p, labels: str):
+    """The label of the dim a placement shards, else ``None``."""
+    from torch.distributed.tensor import Shard
+
+    return labels[p.dim] if isinstance(p, Shard) else None
+
+
+def _local_product(eq: str, op, x, w, mesh):
+    """``product`` of one weight, the activation ``x`` already gathered
+    where the two would split kept dims on one mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, out = eq.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    xp = list(x.placements)
+    wp = [Replicate() if p.is_partial() else p for p in w.placements]
+    for i in range(mesh.ndim):
+        a, b = _letter(xp[i], lx), _letter(wp[i], lw)
+        if a is not None and b is None and a in lw:
+            wp[i] = Shard(lw.index(a))
+        elif b is not None and a is None and b in lx:
+            xp[i] = Shard(lx.index(b))
+    sizes: dict = {}
+    for t, labels, places in ((x, lx, xp), (w, lw, wp)):
+        for i, p in enumerate(places):
+            if isinstance(p, Shard):
+                sizes.setdefault((labels[p.dim], t.shape[p.dim]), {})[i] = (
+                    mesh.size(i))
+    if any(n % math.prod(by.values()) for (_, n), by in sizes.items()):
+        return op(x, w)
+    out_p, gx, gw = [], [], []
+    for i in range(mesh.ndim):
+        a, b = _letter(xp[i], lx), _letter(wp[i], lw)
+        c = a or b
+        out_p.append(Replicate() if c is None else Shard(out.index(c))
+                     if c in out else Partial())
+        # a rank's gradient of an operand it holds whole sums over the
+        # other's split of a dim it lacks
+        gx.append(xp[i] if a else Partial() if b and b not in lx
+                  else Replicate())
+        gw.append(wp[i] if b else Partial() if a and a not in lw
+                  else Replicate())
+    fn = local_map(op, out_placements=out_p, in_placements=(xp, wp),
+                   in_grad_placements=(gx, gw), device_mesh=mesh)
+    return fn(x.redistribute(mesh, xp), w.redistribute(mesh, wp))

@@ -25,7 +25,7 @@ WORLD = 2
 MESHES = {"1x2": (1, 2), "2x1": (2, 1)}
 #: The reduced architectures of the reference's small dry-run test.
 ARCHS = ("qwen3_8b", "granite_moe_1b", "mamba2_370m", "recurrentgemma_9b",
-         "whisper_base")
+         "whisper_base", "yi_34b")
 #: Forward and train batch: rows, tokens (the train step's are 16 + 1).
 B, S = 4, 16
 #: The serving case: slots, cache length, prompts (lengths), new tokens.
@@ -48,6 +48,8 @@ def cfg_of(arch: str):
                       ssm_state=16)
     elif arch == "recurrentgemma_9b":
         cfg = reduced(cfg, n_layers=5, rglru_width=64, head_dim=16)
+    elif arch == "yi_34b":      # its own rules: the stream's sequence
+        cfg = reduced(cfg, sharding_overrides=cfg.sharding_overrides)
     else:
         cfg = reduced(cfg)
     return dataclasses.replace(cfg, dtype="float32")

@@ -8,9 +8,10 @@
   reference's host mesh of 8 devices in another), the local shards of
   ``shape_structs`` and ``input_specs`` have the shapes of
   ``NamedSharding(mesh, spec).shard_shape`` for the five reduced
-  architectures of ``tests/test_dryrun_small.py``.
+  architectures of ``tests/test_dryrun_small.py`` and yi_34b under its
+  own rules (the residual stream's sequence over ``model``).
 * Two gloo ranks (``tests/_torch_sharded_worker.py``, spawned once), on the
-  meshes (1, 2) and (2, 1): the forward and one train step of those five
+  meshes (1, 2) and (2, 1): the forward and one train step of those six
   models against the port's one-device path (so against the reference
   through the existing parity tests); granite's sharded ``moe_layer``
   against the reference's own sharded ``moe_layer`` on a 2-device host
@@ -153,7 +154,7 @@ def test_constrain_passes_a_plain_tensor_through():
 # --------------------------------------------------------------------------
 
 DRYRUN_ARCHS = ["qwen3_8b", "granite_moe_1b", "mamba2_370m",
-                "recurrentgemma_9b", "whisper_base"]
+                "recurrentgemma_9b", "whisper_base", "yi_34b"]
 
 _SHAPES_COMMON = """
     import os, sys, json
@@ -163,6 +164,9 @@ _SHAPES_COMMON = """
         extra = {}
         if arch == "mamba2_370m":
             extra = dict(ssm_heads=4, ssm_head_dim=32, ssm_state=16)
+        if arch == "yi_34b":    # its own rules: the stream's sequence split
+            extra = dict(sharding_overrides=get_config(
+                arch).sharding_overrides)
         return reduced(get_config(arch), d_model=64, n_heads=4, n_kv_heads=2,
                        head_dim=16, vocab_size=256, **extra)
 """
