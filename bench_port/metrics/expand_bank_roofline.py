@@ -1,0 +1,10 @@
+"""expand_bank_roofline: the least time the chip could take for every launch of
+``expand_bank`` in the traced window, from each launch's shapes
+(``bench_port/roofline/expand_bank.py``), over the kernel's traced device time,
+in %."""
+
+from bench_port.harness.window import roofline_pct
+
+
+def read(w):
+    return roofline_pct(w, "expand_bank")
