@@ -103,10 +103,6 @@ obs.counter("construction.retries",
             help="per-pattern fingerprint-collision retries")
 obs.counter("construction.blown",
             help="patterns abandoned to the state-budget blowup verdict")
-obs.histogram("construction.bank_wall_s",
-              help="construct_bank wall seconds per bank")
-obs.histogram("construction.round_wall_s",
-              help="wall seconds per batched construction round")
 
 #: Size-bucketing modes (see :func:`construct_bank`).
 BUCKETINGS = ("auto", "size", "off")
@@ -236,13 +232,15 @@ def _merge(states, fp_hi, fp_lo, delta, n_states, frontier, active,
     # Append new states. Targets at or past the capacity are dropped, as the
     # reference's mode="drop" scatter drops them (a blowup round appends past
     # the last tier; the pattern is then flagged blown).
-    tgt = torch.where(c_new, new_id, C)
-    keep = tgt < C
-    b_keep = bidx.expand(B, Tk)[keep]
-    t_keep = tgt[keep]
-    states[b_keep, t_keep] = cand[keep]
-    fp_hi[b_keep, t_keep] = c_hi[keep]
-    fp_lo[b_keep, t_keep] = c_lo[keep]
+    # Each boolean selection waits for the device (its nonzero).
+    with obs.loop_span("construction.round.compact"):
+        tgt = torch.where(c_new, new_id, C)
+        keep = tgt < C
+        b_keep = bidx.expand(B, Tk)[keep]
+        t_keep = tgt[keep]
+        states[b_keep, t_keep] = cand[keep]
+        fp_hi[b_keep, t_keep] = c_hi[keep]
+        fp_lo[b_keep, t_keep] = c_lo[keep]
 
     # δ_s rows of the tile: candidate (f, a) order is row-major, so the ids
     # reshape straight into delta rows frontier .. frontier + tile.
@@ -533,7 +531,6 @@ def construct_bank(
     obs.counter("construction.rounds").inc(result.stats.rounds)
     obs.counter("construction.retries").inc(int(result.stats.retries.sum()))
     obs.counter("construction.blown").inc(int(result.blown.sum()))
-    obs.histogram("construction.bank_wall_s").observe(result.stats.wall_time_s)
     if on_blowup == "raise":
         result.require_all()
     return result
@@ -675,109 +672,152 @@ def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
                        fp_backend, expand_backend, bucket_growth, weight_fn,
                        device, mesh, pattern_axis):
     t0 = time.perf_counter()
-    bank = PatternBank.from_dfas(dfas)  # validates the shared alphabet
-    P, n, k = bank.n_patterns, bank.n_max, bank.n_symbols
-    if n >= 1 << 16:
-        raise ValueError("batched engine packs 16-bit state ids")
-    W = (n + 1) // 2
-    quantum = 1 if mesh is None else axis_size(mesh, pattern_axis)
-    sched = round_schedule(
-        tile=tile, n=n, k=k, max_states=max_states, P=P, quantum=quantum,
-        bucket_growth=bucket_growth,
-    )
-    capacity = sched.capacities[0]
+    with obs.span("construction.setup", patterns=len(dfas)):
+        bank = PatternBank.from_dfas(dfas)  # validates the shared alphabet
+        P, n, k = bank.n_patterns, bank.n_max, bank.n_symbols
+        if n >= 1 << 16:
+            raise ValueError("batched engine packs 16-bit state ids")
+        W = (n + 1) // 2
+        quantum = 1 if mesh is None else axis_size(mesh, pattern_axis)
+        sched = round_schedule(
+            tile=tile, n=n, k=k, max_states=max_states, P=P, quantum=quantum,
+            bucket_growth=bucket_growth,
+        )
+        capacity = sched.capacities[0]
 
-    stats = BankStats(
-        method="batched",
-        pattern_rounds=np.zeros(P, np.int64),
-        retries=np.zeros(P, np.int64),
-        pattern_candidates=np.zeros(P, np.int64),
-    )
-
-    # -- per-pattern fingerprint constants + initial buffers ------------------
-    n_true = bank.n_states.astype(np.int64)
-    attempts = np.zeros(P, dtype=np.int64)
-
-    def consts_of(p):
-        return BarrettConstants.cached(
-            nth_poly_low(poly_index + int(attempts[p]))
+        stats = BankStats(
+            method="batched",
+            pattern_rounds=np.zeros(P, np.int64),
+            retries=np.zeros(P, np.int64),
+            pattern_candidates=np.zeros(P, np.int64),
         )
 
-    weights_np = np.empty((P, W, 2), dtype=np.int32)
-    limbs_np = np.empty((P, 4), dtype=np.int32)
-    masks_np = np.empty((P, W), dtype=np.int32)
-    fp0_np = np.empty((P, 2), dtype=np.int64)
-    for p in range(P):
-        c = consts_of(p)
-        weights_np[p] = _as_i32(weight_fn(p, 0, W, c))
-        limbs_np[p] = _limbs_of(c)
-        masks_np[p] = _as_i32(_word_mask(int(n_true[p]), n))
-        fp0_np[p] = _seed_fingerprint(int(n_true[p]), c.poly_low)
+        # -- per-pattern fingerprint constants + initial buffers --------------
+        n_true = bank.n_states.astype(np.int64)
+        attempts = np.zeros(P, dtype=np.int64)
 
-    def tensor(a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        def consts_of(p):
+            return BarrettConstants.cached(
+                nth_poly_low(poly_index + int(attempts[p]))
+            )
 
-    states = torch.zeros((P, capacity, n), dtype=torch.int32, device=device)
-    states[:, 0] = torch.arange(n, dtype=torch.int32, device=device)
-    fp_hi = torch.full((P, capacity), _U32MAX, dtype=torch.int64,
-                       device=device)
-    fp_lo = fp_hi.clone()
-    fp_hi[:, 0] = tensor(fp0_np[:, 0])
-    fp_lo[:, 0] = tensor(fp0_np[:, 1])
-    delta = torch.zeros((P, capacity, k), dtype=torch.int32, device=device)
-    n_states = torch.ones(P, dtype=torch.int64, device=device)
-    frontier = torch.zeros(P, dtype=torch.int64, device=device)
-    weights = tensor(weights_np)
-    limbs = tensor(limbs_np)
-    masks = tensor(masks_np)
-    tables = tensor(bank.tables)
+        weights_np = np.empty((P, W, 2), dtype=np.int32)
+        limbs_np = np.empty((P, 4), dtype=np.int32)
+        masks_np = np.empty((P, W), dtype=np.int32)
+        fp0_np = np.empty((P, 2), dtype=np.int64)
+        for p in range(P):
+            c = consts_of(p)
+            weights_np[p] = _as_i32(weight_fn(p, 0, W, c))
+            limbs_np[p] = _limbs_of(c)
+            masks_np[p] = _as_i32(_word_mask(int(n_true[p]), n))
+            fp0_np[p] = _seed_fingerprint(int(n_true[p]), c.poly_low)
 
-    n_states_h = np.ones(P, dtype=np.int64)
-    frontier_h = np.zeros(P, dtype=np.int64)
-    blown = np.zeros(P, dtype=bool)
+        def tensor(a, dtype=None):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        states = torch.zeros((P, capacity, n), dtype=torch.int32,
+                             device=device)
+        states[:, 0] = torch.arange(n, dtype=torch.int32, device=device)
+        fp_hi = torch.full((P, capacity), _U32MAX, dtype=torch.int64,
+                           device=device)
+        fp_lo = fp_hi.clone()
+        fp_hi[:, 0] = tensor(fp0_np[:, 0])
+        fp_lo[:, 0] = tensor(fp0_np[:, 1])
+        delta = torch.zeros((P, capacity, k), dtype=torch.int32,
+                            device=device)
+        n_states = torch.ones(P, dtype=torch.int64, device=device)
+        frontier = torch.zeros(P, dtype=torch.int64, device=device)
+        weights = tensor(weights_np)
+        limbs = tensor(limbs_np)
+        masks = tensor(masks_np)
+        tables = tensor(bank.tables)
+
+        n_states_h = np.ones(P, dtype=np.int64)
+        frontier_h = np.zeros(P, dtype=np.int64)
+        blown = np.zeros(P, dtype=bool)
 
     # -- the nonblocking host loop -------------------------------------------
+    schedule = obs.loop_span("construction.schedule")
+    flags = None
     while True:
-        runnable = (~blown) & (frontier_h < n_states_h)
-        act = np.flatnonzero(runnable)
-        if act.size == 0:
-            break
-        worst = int(n_states_h[act].max()) + tile * k
-        if worst > capacity and capacity < sched.capacities[-1]:
-            grown = sched.capacity_for(worst)
-            pad = grown - capacity
-            states = torch.nn.functional.pad(states, (0, 0, 0, pad))
-            fp_hi = torch.nn.functional.pad(fp_hi, (0, pad), value=_U32MAX)
-            fp_lo = torch.nn.functional.pad(fp_lo, (0, pad), value=_U32MAX)
-            delta = torch.nn.functional.pad(delta, (0, 0, 0, pad))
-            capacity = grown
-        # The reference slices the tile with a clamping dynamic_slice; the
-        # schedule's growth guard makes the clamp unreachable, so check that
-        # here rather than reproduce it.
-        if int(frontier_h[act].max()) + tile > capacity:
-            raise RuntimeError(
-                "frontier tile runs past the state buffer: "
-                f"frontier {int(frontier_h[act].max())} + tile {tile} > "
-                f"capacity {capacity}")
-        bucket = sched.bucket_for(act.size)
-        idx_np = np.full(bucket, act[0], dtype=np.int64)
-        idx_np[: act.size] = act
-        act_np = np.zeros(bucket, dtype=bool)
-        act_np[: act.size] = True
-        idx = tensor(idx_np)
-        live = idx[: act.size]
+        # Between rounds: the last round's flags back, collision retries,
+        # the blow-up check, then the next round's patterns and buffers.
+        with schedule:
+            if flags is not None:
+                n_states_h[act] = flags[0].numpy()
+                frontier_h[act] = flags[1].numpy()
+                coll_np = flags[2].numpy().astype(bool)
 
-        stats.rounds += 1
-        stats.pattern_rounds[act] += 1
-        stats.pattern_candidates[act] += (
-            np.minimum(n_states_h[act] - frontier_h[act], tile) * k
-        )
+                collided = act[coll_np]
+                # Per-pattern polynomial retry: only collided patterns
+                # restart; the others keep their progress.
+                if collided.size:
+                    for p in collided:
+                        attempts[p] += 1
+                        stats.retries[p] += 1
+                        if attempts[p] >= max_retries:
+                            raise FingerprintCollision(
+                                f"pattern {p}: {max_retries} polynomials "
+                                "all collided")
+                        c = consts_of(p)
+                        weights_np[p] = _as_i32(weight_fn(
+                            int(p), int(attempts[p]), W, c))
+                        limbs_np[p] = _limbs_of(c)
+                        fp0_np[p] = _seed_fingerprint(int(n_true[p]),
+                                                      c.poly_low)
+                    cidx = tensor(collided)
+                    weights[cidx] = tensor(weights_np[collided])
+                    limbs[cidx] = tensor(limbs_np[collided])
+                    fp_hi[cidx, 0] = tensor(fp0_np[collided, 0])
+                    fp_lo[cidx, 0] = tensor(fp0_np[collided, 1])
+                    n_states[cidx] = 1
+                    frontier[cidx] = 0
+                    n_states_h[collided] = 1
+                    frontier_h[collided] = 0
+
+                blown |= n_states_h > max_states
+
+            runnable = (~blown) & (frontier_h < n_states_h)
+            act = np.flatnonzero(runnable)
+            if act.size == 0:
+                break
+            worst = int(n_states_h[act].max()) + tile * k
+            if worst > capacity and capacity < sched.capacities[-1]:
+                grown = sched.capacity_for(worst)
+                pad = grown - capacity
+                states = torch.nn.functional.pad(states, (0, 0, 0, pad))
+                fp_hi = torch.nn.functional.pad(fp_hi, (0, pad),
+                                                value=_U32MAX)
+                fp_lo = torch.nn.functional.pad(fp_lo, (0, pad),
+                                                value=_U32MAX)
+                delta = torch.nn.functional.pad(delta, (0, 0, 0, pad))
+                capacity = grown
+            # The reference slices the tile with a clamping dynamic_slice;
+            # the schedule's growth guard makes the clamp unreachable, so
+            # check that here rather than reproduce it.
+            if int(frontier_h[act].max()) + tile > capacity:
+                raise RuntimeError(
+                    "frontier tile runs past the state buffer: "
+                    f"frontier {int(frontier_h[act].max())} + tile {tile} > "
+                    f"capacity {capacity}")
+            bucket = sched.bucket_for(act.size)
+            idx_np = np.full(bucket, act[0], dtype=np.int64)
+            idx_np[: act.size] = act
+            act_np = np.zeros(bucket, dtype=bool)
+            act_np[: act.size] = True
+            idx = tensor(idx_np)
+            live = idx[: act.size]
+
+            stats.rounds += 1
+            stats.pattern_rounds[act] += 1
+            stats.pattern_candidates[act] += (
+                np.minimum(n_states_h[act] - frontier_h[act], tile) * k
+            )
 
         # The round runs on the bucket's own copies (padding rows repeat the
         # first active pattern and are never written back). Under a mesh a
         # rank runs its slice of the bucket — an all-padding slice too, so
         # every rank joins every gather — and the slices gather back.
-        round_t0 = time.perf_counter()
         with obs.span("construction.round", round=stats.rounds,
                       bucket=bucket, capacity=capacity):
             ridx, ract = idx, tensor(act_np)
@@ -804,73 +844,44 @@ def _construct_batched(dfas, *, max_states, tile, max_retries, poly_index,
             n_states[live] = o_n[:m]
             frontier[live] = o_frontier[:m]
             flags = torch.stack(
-                [o_n[:m], o_frontier[:m], o_coll[:m].to(torch.int64)]).cpu()
-        obs.histogram("construction.round_wall_s").observe(
-            time.perf_counter() - round_t0)
-        n_states_h[act] = flags[0].numpy()
-        frontier_h[act] = flags[1].numpy()
-        coll_np = flags[2].numpy().astype(bool)
-
-        collided = act[coll_np]
-        # Per-pattern polynomial retry: only collided patterns restart; the
-        # others keep their progress.
-        if collided.size:
-            for p in collided:
-                attempts[p] += 1
-                stats.retries[p] += 1
-                if attempts[p] >= max_retries:
-                    raise FingerprintCollision(
-                        f"pattern {p}: {max_retries} polynomials all collided"
-                    )
-                c = consts_of(p)
-                weights_np[p] = _as_i32(weight_fn(int(p), int(attempts[p]),
-                                                  W, c))
-                limbs_np[p] = _limbs_of(c)
-                fp0_np[p] = _seed_fingerprint(int(n_true[p]), c.poly_low)
-            cidx = tensor(collided)
-            weights[cidx] = tensor(weights_np[collided])
-            limbs[cidx] = tensor(limbs_np[collided])
-            fp_hi[cidx, 0] = tensor(fp0_np[collided, 0])
-            fp_lo[cidx, 0] = tensor(fp0_np[collided, 1])
-            n_states[cidx] = 1
-            frontier[cidx] = 0
-            n_states_h[collided] = 1
-            frontier_h[collided] = 0
-
-        blown |= n_states_h > max_states
+                [o_n[:m], o_frontier[:m], o_coll[:m].to(torch.int64)])
+            with obs.loop_span("construction.round.readback"):
+                flags = flags.cpu()
 
     # -- crop per-pattern results ---------------------------------------------
-    states_np = states.cpu().numpy()
-    delta_np = delta.cpu().numpy()
-    fp_np = torch.stack([fp_hi, fp_lo], dim=-1).cpu().numpy().astype(
-        np.uint32)
-    stats.wall_time_s = time.perf_counter() - t0
-    stats.candidates = int(stats.pattern_candidates.sum())
-    total_rounds = int(stats.pattern_rounds.sum())
-    sfas: list = [None] * P
-    for p in range(P):
-        if blown[p]:
-            continue
-        S = int(n_states_h[p])
-        # Rounds-weighted share: the bank's wall belongs to BankStats; a
-        # pattern reports only the fraction of rounds it was active in.
-        share = (
-            stats.wall_time_s * int(stats.pattern_rounds[p]) / total_rounds
-            if total_rounds else 0.0
-        )
-        pstats = SFAStats(
-            engine="batched",
-            rounds=int(stats.pattern_rounds[p]),
-            candidates=int(stats.pattern_candidates[p]),
-            wall_time_s=share,
-        )
-        sfas[p] = SFA(
-            mappings=np.ascontiguousarray(states_np[p, :S, : int(n_true[p])]),
-            delta=np.ascontiguousarray(delta_np[p, :S]),
-            fingerprints=np.ascontiguousarray(fp_np[p, :S]),
-            dfa=dfas[p],
-            stats=pstats,
-        )
+    with obs.span("construction.crop", patterns=P):
+        states_np = states.cpu().numpy()
+        delta_np = delta.cpu().numpy()
+        fp_np = torch.stack([fp_hi, fp_lo], dim=-1).cpu().numpy().astype(
+            np.uint32)
+        stats.wall_time_s = time.perf_counter() - t0
+        stats.candidates = int(stats.pattern_candidates.sum())
+        total_rounds = int(stats.pattern_rounds.sum())
+        sfas: list = [None] * P
+        for p in range(P):
+            if blown[p]:
+                continue
+            S = int(n_states_h[p])
+            # Rounds-weighted share: the bank's wall belongs to BankStats; a
+            # pattern reports only the fraction of rounds it was active in.
+            share = (
+                stats.wall_time_s * int(stats.pattern_rounds[p]) / total_rounds
+                if total_rounds else 0.0
+            )
+            pstats = SFAStats(
+                engine="batched",
+                rounds=int(stats.pattern_rounds[p]),
+                candidates=int(stats.pattern_candidates[p]),
+                wall_time_s=share,
+            )
+            sfas[p] = SFA(
+                mappings=np.ascontiguousarray(
+                    states_np[p, :S, : int(n_true[p])]),
+                delta=np.ascontiguousarray(delta_np[p, :S]),
+                fingerprints=np.ascontiguousarray(fp_np[p, :S]),
+                dfa=dfas[p],
+                stats=pstats,
+            )
     return BankConstructionResult(sfas=sfas, blown=blown, stats=stats)
 
 

@@ -377,27 +377,30 @@ class Scanner:
                 mesh = plan.mesh if plan.mesh is not None else world_mesh(
                     plan.data_axis, device.type)
             groups = []
-            for mode in ("sfa", "enumeration", "speculative"):
-                member = [i for i, m in enumerate(modes) if m == mode]
-                if not member:
-                    continue
-                if plan.chunking.bucket:
-                    sizes = [
-                        sfas[i].n_states if mode == "sfa"
-                        else dfas[i].n_states
-                        for i in member
-                    ]
-                    parts = partition_by_size(
-                        sizes, plan.chunking.bucket_edges, overflow="extend")
-                    parts = [[member[j] for j in idx] for _, idx in parts]
-                else:
-                    parts = [member]
-                for part in parts:
-                    groups.append(cls._build_group(
-                        part, [dfas[i] for i in part],
-                        [ids[i] for i in part], mode,
-                        [sfas.get(i) for i in part], plan, device, mesh,
-                    ))
+            with obs.span("scanner.compile.groups"):
+                for mode in ("sfa", "enumeration", "speculative"):
+                    member = [i for i, m in enumerate(modes) if m == mode]
+                    if not member:
+                        continue
+                    if plan.chunking.bucket:
+                        sizes = [
+                            sfas[i].n_states if mode == "sfa"
+                            else dfas[i].n_states
+                            for i in member
+                        ]
+                        parts = partition_by_size(
+                            sizes, plan.chunking.bucket_edges,
+                            overflow="extend")
+                        parts = [[member[j] for j in idx]
+                                 for _, idx in parts]
+                    else:
+                        parts = [member]
+                    for part in parts:
+                        groups.append(cls._build_group(
+                            part, [dfas[i] for i in part],
+                            [ids[i] for i in part], mode,
+                            [sfas.get(i) for i in part], plan, device, mesh,
+                        ))
         obs.counter("engine.compiles").inc()
         scanner = cls(ids, dfas, groups, plan, single, device, mesh, report)
         scanner.last_trace_id = trace_id
@@ -580,13 +583,14 @@ class Scanner:
                     profiles[j] = HotStateProfile.from_json(meta)
         need = [j for j, pr in enumerate(profiles) if pr is None]
         if need:
-            sample = self._speculation_sample(corpus)
-            fresh = profile_hot_states(
-                g.bank.tables[need], g.bank.starts[need], sample, pol.m)
-            for j, pr in zip(need, fresh):
-                profiles[j] = pr
-                if keys is not None and hasattr(store, "put_profile"):
-                    store.put_profile(keys[j], pr.to_json())
+            with obs.span("speculative.profile", patterns=len(need)):
+                sample = self._speculation_sample(corpus)
+                fresh = profile_hot_states(
+                    g.bank.tables[need], g.bank.starts[need], sample, pol.m)
+                for j, pr in zip(need, fresh):
+                    profiles[j] = pr
+                    if keys is not None and hasattr(store, "put_profile"):
+                        store.put_profile(keys[j], pr.to_json())
         states = stack_profile_states(profiles, pol.m, g.n)
         g._spec_profile = states
         return states
@@ -652,26 +656,49 @@ class Scanner:
     # -- public scan API ----------------------------------------------------
 
     def scan(self, docs) -> ScanResult:
-        """Match a corpus against the bank -> :class:`ScanResult` (P, D)."""
-        batches = self._length_batches(docs)
-        D = sum(len(idxs) for idxs, _ in batches)
-        hits = np.zeros((self.n_patterns, D), dtype=bool)
+        """Match a corpus against the bank -> :class:`ScanResult` (P, D).
+
+        Spans: ``scanner.scan.prepare`` once (encoding, one batch a doc
+        length, the symbol check), then, as loop spans, for each batch and
+        group ``scanner.scan.launch`` (the batch's upload in its first
+        group, the walk and fold launches), ``scanner.scan.readback`` (the
+        host waits for the device, then copies) and ``scanner.scan.scatter``
+        (the group's hits into the (P, D) matrix)."""
         spec_stats: SpeculationStats | None = None
-        with obs.span("scanner.scan", patterns=self.n_patterns, docs=D):
+        with obs.span("scanner.scan", patterns=self.n_patterns) as span:
             self.last_trace_id = obs.current_trace_id() or self.last_trace_id
+            with obs.span("scanner.scan.prepare"):
+                batches = self._length_batches(docs)
+                D = sum(len(idxs) for idxs, _ in batches)
+                hits = np.zeros((self.n_patterns, D), dtype=bool)
+            if span is not None:
+                span.attrs["docs"] = D
+            launch = obs.loop_span("scanner.scan.launch")
+            readback = obs.loop_span("scanner.scan.readback")
+            scatter = obs.loop_span("scanner.scan.scatter")
             for idxs, corpus in batches:
-                corpus_t = torch.as_tensor(corpus, device=self.device)
+                corpus_t = None
                 for g in self.groups:
-                    if g.mode == "speculative" and corpus.shape[1]:
-                        finals, st = self._group_doc_finals(g, corpus,
+                    with launch:
+                        if corpus_t is None:
+                            corpus_t = torch.as_tensor(corpus,
+                                                       device=self.device)
+                        if g.mode == "speculative" and corpus.shape[1]:
+                            finals, st = self._group_doc_finals(g, corpus,
+                                                                corpus_t)
+                            spec_stats = st if spec_stats is None \
+                                else spec_stats.merged(st)
+                            acc = g.accepting.gather(1,
+                                                     finals.to(torch.int64))
+                        else:
+                            maps = self._group_doc_mappings(g, corpus,
                                                             corpus_t)
-                        spec_stats = st if spec_stats is None \
-                            else spec_stats.merged(st)
-                        acc = g.accepting.gather(1, finals.to(torch.int64))
-                    else:
-                        maps = self._group_doc_mappings(g, corpus, corpus_t)
-                        acc = X.hits_of_mappings(maps, g.accepting, g.starts)
-                    hits[np.ix_(g.indices, idxs)] = acc.cpu().numpy()
+                            acc = X.hits_of_mappings(maps, g.accepting,
+                                                     g.starts)
+                    with readback:
+                        acc = acc.cpu().numpy()
+                    with scatter:
+                        hits[np.ix_(g.indices, idxs)] = acc
         obs.counter("engine.scans").inc()
         obs.counter("engine.docs_scanned").inc(D)
         self.last_speculation = spec_stats

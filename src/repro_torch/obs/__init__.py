@@ -11,15 +11,21 @@ helpers so instrumentation sites stay one-liners::
     print(obs.render_prometheus(obs.snapshot()))
 
 Observability is **enabled by default** (overhead is a handful of counter
-increments and perf_counter reads per request). ``obs.disable()`` turns
-every mutator into a single attribute-check early return and ``obs.span``
-into a shared no-op context manager; scan/construct results are
+increments and clock reads per span). Every span closed adds to three
+counters of the registry, ``span.<name>.calls``, ``span.<name>.ns`` and
+``span.<name>.self_ns`` (:mod:`repro_torch.obs.tracing`), so a span's time
+reaches any reader of :func:`snapshot`; :func:`loop_span` adds to the same
+counters from inside a hot loop, keeping no record of each pass.
+``obs.disable()`` turns every mutator into a single attribute-check early
+return and ``obs.span`` and ``obs.loop_span`` into a shared no-op context
+manager; scan/construct results are
 bit-identical either way (asserted in ``tests/test_torch_obs.py``).
 
 ``obs.configure(profiler_annotations=True)`` additionally bridges each span
 into ``torch.profiler.record_function`` so spans appear on the host
 timeline of ``torch.profiler`` traces (``chip_smoke.py --profile`` turns
-this on).
+this on), and resamples the offset that puts exported spans
+(``t_start_unix_ns``, ``t_end_unix_ns``) on the profiler's clock.
 
 The ``kernels.<op>.calls`` counters count wrapper calls that launched a
 kernel or ran its plain version, one per call. The reference package's
@@ -39,6 +45,7 @@ prefix                          owner
 ``speculative.*``               speculative validate/repair executor
 ``jobs.*``                      ``repro_torch.scanservice.jobs.CorpusJob``
 ``kernels.*``                   ``repro_torch.kernels.ops`` dispatch wrappers
+``span.<name>.*``               the tracer: ``calls``, ``ns``, ``self_ns``
 ==============================  ============================================
 """
 
@@ -61,12 +68,12 @@ from .registry import (  # noqa: F401
     ObsState,
     snapshot_delta,
 )
-from .tracing import Span, Tracer  # noqa: F401
+from .tracing import LoopSpan, Span, Tracer  # noqa: F401
 
 #: Shared on/off state — the registry and tracer check the same flag.
 _state = ObsState()
 registry = MetricsRegistry(_state)
-tracer = Tracer(_state)
+tracer = Tracer(registry)
 
 # Fleet-layer helpers build on the globals above, so they import after.
 from .flight import FlightRecorder, read_flight  # noqa: E402,F401
@@ -103,6 +110,8 @@ def configure(*, enabled: bool | None = None,
         _state.enabled = enabled
     if profiler_annotations is not None:
         _state.profiler_annotations = profiler_annotations
+        if profiler_annotations:
+            tracer.sync_clock()
 
 
 def counter(name: str, help: str | None = None) -> Counter:
@@ -126,8 +135,13 @@ def render_prometheus(snapshot: dict, help_texts: dict | None = None) -> str:
     return _render_prometheus(snapshot, help_texts)
 
 
-def span(name: str, trace_id: str | None = None, **attrs):
-    return tracer.span(name, trace_id=trace_id, **attrs)
+#: ``span(name, trace_id=None, **attrs)``: :meth:`Tracer.span` of the
+#: process's tracer (bound once: a span site pays no extra call).
+span = tracer.span
+
+#: ``loop_span(name)``: :meth:`Tracer.loop_span`, a span site for a hot
+#: loop (totals and the bridge, no record in the ring buffer).
+loop_span = tracer.loop_span
 
 
 def current_trace_id() -> str | None:
@@ -147,6 +161,7 @@ def recent_spans(limit: int = 100) -> list:
 
 
 def reset() -> None:
-    """Zero all metrics and drop retained spans (enabled flag unchanged)."""
+    """Zero all metrics (the span totals too) and drop retained spans
+    (enabled flag unchanged)."""
     registry.reset()
     tracer.reset()

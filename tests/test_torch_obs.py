@@ -8,17 +8,22 @@ both packages. The port's instrumentation is held to the reference's by one
 compile and scan of the bundled bank plus a 702-state pattern (budget 512,
 so 18 SFA, 5 enumeration and 1 speculative pattern; cache off) in each
 package: the ``engine.*``, ``construction.*``, ``speculative.*`` and
-``cache.sfa.*`` values and the set of span names are equal. Wall-time
-histograms are left out of that comparison (they time the run), and so are
-the ``kernels.*`` counters: the reference counts jit trace events, the port
-counts wrapper calls.
+``cache.sfa.*`` values are equal, and the port's span names are the
+reference's plus the spans it opens around its scan and construction steps
+(``NEW_SPANS``, kept in the ring buffer) and inside their loops
+(``LOOP_SPANS``, totals only). Wall-time histograms and the port's
+``span.*`` totals are left out of that comparison (they time the run), and
+so are the ``kernels.*`` counters: the reference counts jit trace events,
+the port counts wrapper calls.
 """
 
+import contextvars
 import json
 import os
 import socket
 import subprocess
 import sys
+import threading
 import urllib.error
 from urllib.request import urlopen
 
@@ -75,6 +80,19 @@ from repro_torch.scanservice import (  # noqa: E402
 
 CPU = "cpu"
 PATTERNS = ["PS00016", "PS00005"]
+
+#: Spans the port opens around its scan and construction steps, beyond the
+#: reference's names.
+NEW_SPANS = {
+    "scanner.scan.prepare", "speculative.profile", "scanner.compile.groups",
+    "construction.setup", "construction.crop",
+}
+#: Loop spans the port opens inside those loops: totals, no record.
+LOOP_SPANS = {
+    "scanner.scan.launch", "scanner.scan.readback", "scanner.scan.scatter",
+    "construction.schedule", "construction.round.compact",
+    "construction.round.readback",
+}
 
 
 @pytest.fixture(autouse=True)
@@ -189,6 +207,228 @@ def test_span_nesting_trace_inheritance_and_errors():
             raise RuntimeError("boom")
     sp = obs.recent_spans(1)[0]
     assert sp.name == "t.span.err" and sp.attrs["error"] == "RuntimeError"
+
+
+def _dur(s):
+    return s.t_end_ns - s.t_start_ns
+
+
+def test_span_totals_count_calls_ns_and_self_ns():
+    """Each closed span adds to ``span.<name>.{calls,ns,self_ns}``; self
+    time leaves out direct children on the same thread only: a span
+    re-rooted on a fresh thread and one whose parent is this thread's span
+    (a copied context) are not taken off their parent's self time."""
+    before = obs.snapshot("span.t.tot")
+    box = {}
+
+    def fresh_thread(trace_id):
+        with obs.span("t.tot.thread", trace_id=trace_id) as s:
+            box["fresh"] = s
+
+    def copied_context():
+        with obs.span("t.tot.thread") as s:
+            box["copied"] = s
+
+    with obs.span("t.tot.outer") as outer:
+        with obs.span("t.tot.inner") as a:
+            pass
+        with obs.span("t.tot.inner") as b:
+            with obs.span("t.tot.leaf") as leaf:
+                torch.ones(8).sum()
+        ctx = contextvars.copy_context()
+        for th in (threading.Thread(target=fresh_thread,
+                                    args=(outer.trace_id,)),
+                   threading.Thread(target=ctx.run, args=(copied_context,))):
+            th.start()
+            th.join()
+    fresh, copied = box["fresh"], box["copied"]
+    assert fresh.parent_id is None and fresh.trace_id == outer.trace_id
+    assert copied.parent_id == outer.span_id
+    d = snapshot_delta(before, obs.snapshot("span.t.tot"))
+    got = {k: d.get(f"span.t.tot.{k}", 0) for k in (
+        "outer.calls", "outer.ns", "outer.self_ns", "inner.calls",
+        "inner.ns", "inner.self_ns", "leaf.calls", "leaf.ns",
+        "leaf.self_ns", "thread.calls", "thread.ns", "thread.self_ns")}
+    threads = _dur(fresh) + _dur(copied)
+    assert got == {
+        "outer.calls": 1, "outer.ns": _dur(outer),
+        "outer.self_ns": _dur(outer) - _dur(a) - _dur(b),
+        "inner.calls": 2, "inner.ns": _dur(a) + _dur(b),
+        "inner.self_ns": _dur(a) + _dur(b) - _dur(leaf),
+        "leaf.calls": 1, "leaf.ns": _dur(leaf), "leaf.self_ns": _dur(leaf),
+        "thread.calls": 2, "thread.ns": threads, "thread.self_ns": threads,
+    }
+    assert isinstance(obs.snapshot()["span.t.tot.outer.ns"], int)
+
+    obs.disable()
+    try:
+        with obs.span("t.tot.outer"):
+            with obs.span("t.tot.inner"):
+                pass
+    finally:
+        obs.enable()
+    assert snapshot_delta(before, obs.snapshot("span.t.tot")) == d
+    obs.reset()
+    assert set(obs.snapshot("span.t.tot").values()) == {0}
+
+
+def test_span_totals_lose_nothing_across_threads():
+    """Threads closing spans of one name at once, from its first close on,
+    bind one set of counters and lose no update; a reset zeroes them."""
+    n_threads, n_spans = 8, 300
+    go = threading.Barrier(n_threads)
+    durs = [0] * n_threads
+
+    def work(t):
+        go.wait()
+        for _ in range(n_spans):
+            with obs.span("t.race.leaf", trace_id=f"t.race.{t}") as sp:
+                pass
+            durs[t] += _dur(sp)
+
+    before = obs.snapshot("span.t.race")
+    threads = [threading.Thread(target=work, args=(t,))
+               for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    d = snapshot_delta(before, obs.snapshot("span.t.race"))
+    assert d == {"span.t.race.leaf.calls": n_threads * n_spans,
+                 "span.t.race.leaf.ns": sum(durs),
+                 "span.t.race.leaf.self_ns": sum(durs)}
+    obs.reset()
+    assert set(obs.snapshot("span.t.race").values()) == {0}
+
+
+def test_exported_spans_lie_on_the_profilers_clock():
+    """An exported span's ``t_start_unix_ns``/``t_end_unix_ns`` fall inside
+    its bridged ``record_function`` event on the profiler's clock
+    (``trace_start_ns() + time_range · 1000``), within 200 µs at each
+    end. The bridge's own cost stays out of the totals: a leaf's ``ns`` is
+    its interval, an enclosing span's less its children's annotations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = obs.snapshot("span.t.clock")
+    obs.configure(profiler_annotations=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with obs.span("t.clockwarm"):       # the bridge's first call
+                pass
+            for _ in range(2):
+                with obs.span("t.clock.outer"):
+                    with obs.span("t.clock.inner", k=1):
+                        torch.ones(64).sum()
+    finally:
+        obs.configure(profiler_annotations=False)
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    events = sorted((e for e in prof.events()
+                     if e.name.startswith("t.clock.")),
+                    key=lambda e: e.time_range.start)
+    spans = sorted((s.to_json() for s in obs.recent_spans(16)
+                    if s.name.startswith("t.clock.")),
+                   key=lambda r: r["t_start_unix_ns"])
+    assert [e.name for e in events] == [r["name"] for r in spans]
+    assert len(spans) == 4
+    tol = 200_000
+    for e, r in zip(events, spans):
+        a = t0 + e.time_range.start * 1000
+        b = t0 + e.time_range.end * 1000
+        assert a - tol <= r["t_start_unix_ns"] <= a + tol, (e.name, a, r)
+        assert b - tol <= r["t_end_unix_ns"] <= b + tol, (e.name, b, r)
+        assert r["t_start_unix_ns"] < r["t_end_unix_ns"]
+        assert r["t_end_unix_ns"] - r["t_start_unix_ns"] == \
+            pytest.approx(r["wall_s"] * 1e9, abs=1)
+    d = snapshot_delta(before, obs.snapshot("span.t.clock"))
+    durs = {n: sum(_dur(s) for s in obs.recent_spans(16) if s.name == n)
+            for n in ("t.clock.outer", "t.clock.inner")}
+    assert d["span.t.clock.inner.ns"] == d["span.t.clock.inner.self_ns"] \
+        == durs["t.clock.inner"]
+    assert 0 < d["span.t.clock.outer.ns"] < durs["t.clock.outer"]
+    assert d["span.t.clock.outer.ns"] - d["span.t.clock.outer.self_ns"] \
+        == d["span.t.clock.inner.ns"]
+
+
+def test_loop_spans_add_to_the_totals_and_keep_no_record():
+    """A loop span hands its passes to ``span.<name>.*`` when the span it
+    was made in closes, counts as that span's direct child (a span closed
+    inside it is its child, and is not taken off the enclosing span twice)
+    and keeps no record in the ring buffer. Made with no span open, or used
+    after its span closed, it hands each pass over at its exit; disabled,
+    it is the shared no-op span."""
+    before = obs.snapshot("span.t.loop")
+    with obs.span("t.loop.outer") as outer:
+        step = obs.loop_span("t.loop.step")
+        for i in range(3):
+            with step:
+                if i == 1:
+                    with obs.span("t.loop.inner") as inner:
+                        torch.ones(8).sum()
+        mid = snapshot_delta(before, obs.snapshot("span.t.loop"))
+    assert mid.get("span.t.loop.step.calls", 0) == 0
+    d = snapshot_delta(before, obs.snapshot("span.t.loop"))
+    assert inner.parent_id == outer.span_id
+    assert d["span.t.loop.step.calls"] == 3
+    assert d["span.t.loop.inner.ns"] == _dur(inner)
+    assert d["span.t.loop.step.ns"] - d["span.t.loop.step.self_ns"] \
+        == _dur(inner)
+    assert d["span.t.loop.outer.ns"] == _dur(outer)
+    assert d["span.t.loop.outer.ns"] - d["span.t.loop.outer.self_ns"] \
+        == d["span.t.loop.step.ns"] > _dur(inner)
+    kept = {sp.name for sp in obs.recent_spans(4096)
+            if sp.trace_id == outer.trace_id}
+    assert kept == {"t.loop.outer", "t.loop.inner"}
+
+    with step:                      # its span has closed
+        pass
+    top = obs.loop_span("t.loop.top")
+    with top:
+        pass
+    d = snapshot_delta(before, obs.snapshot("span.t.loop"))
+    assert d["span.t.loop.step.calls"] == 4
+    assert d["span.t.loop.top.calls"] == 1
+    assert d["span.t.loop.top.ns"] == d["span.t.loop.top.self_ns"] > 0
+
+    obs.disable()
+    try:
+        off = obs.loop_span("t.loop.off")
+        with off:
+            pass
+    finally:
+        obs.enable()
+    assert off is _NOOP_SPAN
+    assert "span.t.loop.off.calls" not in obs.snapshot("span.t.loop")
+
+
+def test_loop_spans_bridge_into_the_profiler_outside_their_totals():
+    """Bridged, a loop span is a ``record_function`` event of each pass,
+    and no annotation's cost reaches its totals or its span's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = obs.snapshot("span.t.lbridge")
+    obs.configure(profiler_annotations=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with obs.span("t.lbridge.outer") as outer:
+                step = obs.loop_span("t.lbridge.step")
+                for _ in range(2):
+                    with step:
+                        with obs.span("t.lbridge.inner") as inner:
+                            torch.ones(64).sum()
+    finally:
+        obs.configure(profiler_annotations=False)
+    names = [e.name for e in prof.events() if e.name.startswith("t.lbridge")]
+    assert names.count("t.lbridge.step") == 2
+    d = snapshot_delta(before, obs.snapshot("span.t.lbridge"))
+    assert d["span.t.lbridge.step.calls"] == 2
+    assert d["span.t.lbridge.step.ns"] - d["span.t.lbridge.step.self_ns"] \
+        == d["span.t.lbridge.inner.ns"]
+    assert d["span.t.lbridge.outer.ns"] - d["span.t.lbridge.outer.self_ns"] \
+        == d["span.t.lbridge.step.ns"]
+    # The step's and the inner spans' annotations lie inside the outer
+    # span's interval and outside its total.
+    assert 0 < d["span.t.lbridge.outer.ns"] < _dur(outer)
+    assert d["span.t.lbridge.inner.ns"] < 2 * _dur(inner) + _dur(outer)
 
 
 def test_spans_bridge_into_torch_profiler():
@@ -330,6 +570,102 @@ def test_scan_bit_identical_obs_on_off_and_kernel_calls(docs):
     assert np.array_equal(hits_on, hits_off)
 
 
+def _span_calls(before):
+    d = snapshot_delta(before, obs.snapshot("span"))
+    return {k[len("span."):-len(".calls")]: v for k, v in d.items()
+            if k.endswith(".calls")}
+
+
+def test_scan_spans_one_a_batch_and_group():
+    """Documents of three lengths: one prepare span a scan, and a launch, a
+    readback and a scatter pass for each length batch and pattern group,
+    counted in the totals and kept out of the ring buffer."""
+    sc = Scanner.compile(PATTERNS + ["PS00001"], _plan(SFACache()))
+    docs = [synthetic_protein(L, seed=i)
+            for i, L in enumerate([40, 96, 40, 130, 96, 40])]
+    before = obs.snapshot("span")
+    hits = sc.scan(docs).hits
+    calls = _span_calls(before)
+    G = len(sc.groups)
+    assert calls == {"scanner.scan": 1, "scanner.scan.prepare": 1,
+                     "scanner.scan.launch": 3 * G,
+                     "scanner.scan.readback": 3 * G,
+                     "scanner.scan.scatter": 3 * G}
+    summ = obs.trace_summary(sc.last_trace_id)
+    assert summ["spans"][0]["attrs"] == {"patterns": 3, "docs": 6}
+    assert [s["name"] for s in summ["spans"]] == ["scanner.scan",
+                                                 "scanner.scan.prepare"]
+    d = snapshot_delta(before, obs.snapshot("span"))
+    loops = sum(d[f"span.scanner.scan.{n}.ns"]
+                for n in ("launch", "readback", "scatter"))
+    assert d["span.scanner.scan.ns"] - d["span.scanner.scan.self_ns"] \
+        == d["span.scanner.scan.prepare.ns"] + loops
+    assert hits.shape == (3, 6)
+
+
+def test_compile_spans_one_a_round_and_results_obs_off():
+    """A batched compile: exactly one compact and one readback pass a
+    construction round, one schedule pass before each round and one after
+    the last (which finds nothing left to run), a set-up and a crop span a
+    bucket, and the same SFAs with observability off."""
+    before = obs.snapshot("span")
+    rounds0 = obs.snapshot("construction").get("construction.rounds", 0)
+    on = Scanner.compile(PATTERNS, _plan(SFACache()))
+    calls = _span_calls(before)
+    rounds = obs.snapshot("construction")["construction.rounds"] - rounds0
+    assert rounds == on.construction_report.rounds > 1
+    assert (calls["construction.round"] == calls["construction.round.compact"]
+            == calls["construction.round.readback"] == rounds)
+    assert calls["construction.setup"] == calls["construction.crop"] == 1
+    assert calls["construction.schedule"] == rounds + 1
+    assert calls["scanner.compile.groups"] == calls["scanner.compile"] == 1
+    obs.disable()
+    try:
+        off = Scanner.compile(PATTERNS, _plan(SFACache()))
+    finally:
+        obs.enable()
+    assert len(on.groups) == len(off.groups)
+    for g, h in zip(on.groups, off.groups):
+        assert g.mode == h.mode and torch.equal(g.tables, h.tables)
+        if g.mode == "sfa":
+            assert torch.equal(g.deltas, h.deltas)
+            assert torch.equal(g.sfa_maps, h.sfa_maps)
+
+
+def test_service_trace_keeps_its_buckets_after_a_scan_of_many_lengths(
+        tmp_path):
+    """A flush that compiles in size buckets and then scans documents of
+    1,400 distinct lengths (4,200 loop passes, more than the ring buffer's
+    4,096 records) still finds its whole trace in the ring:
+    ``ScanService.metrics()`` reads one bucket a ``construct_bank.bucket``
+    span, and the trace's wall covers the compile."""
+    cache = SFACache()
+    plan = ScanPlan(device=CPU, construction=ConstructionPolicy(
+        cache=cache, method="batched", bucketing="size"))
+    pats = [random_dfa(n, 20, seed=s)
+            for s, n in enumerate([5] * 4 + [24] * 4)]
+    docs = [synthetic_protein(L, seed=L) for L in range(1, 1401)]
+    before = obs.snapshot("span")
+    with ScanService(tmp_path / "store", plan=plan, cache=cache) as svc:
+        ticket = svc.submit(pats, docs)
+        svc.flush()
+        res = ticket.result()
+        m = svc.metrics()
+    assert res.hits.shape == (8, 1400)
+    calls = _span_calls(before)
+    assert calls["scanner.scan.launch"] >= 1400
+    buckets = m["trace"]["construction_buckets"]
+    assert m["trace"]["trace_id"] == ticket.trace_id
+    assert len(buckets) == calls["construct_bank.bucket"] >= 2
+    assert sum(b["n_patterns"] for b in buckets) == 8
+    names = {s["name"] for s in m["trace"]["spans"]}
+    assert {"scheduler.flush", "scanner.compile", "construct_bank",
+            "scanner.scan"} <= names
+    compile_wall = max(s["wall_s"] for s in m["trace"]["spans"]
+                       if s["name"] == "scanner.compile")
+    assert m["trace"]["wall_s"] >= compile_wall
+
+
 def test_trace_id_propagates_submit_to_construction(docs):
     before = obs.snapshot("construction")
     sched = BatchScheduler(_plan(SFACache()))      # cold: flush constructs
@@ -378,8 +714,10 @@ def test_telemetry_server_endpoints(tmp_path, docs):
 def test_instrumentation_matches_reference_on_bundled_bank():
     """One compile and one scan of the bundled bank plus a 702-state DFA
     (budget 512, cache off) in each package: equal counters, gauges and
-    span names (wall-time histograms and ``kernels.*`` aside, see the
-    module docstring)."""
+    span names, the port's names being the reference's plus exactly the
+    spans it opens around and inside its scan and construction loops
+    (wall-time histograms, ``kernels.*`` and the ``span.*`` totals aside,
+    see the module docstring)."""
     n_chunks = 4
     docs = [synthetic_protein(96, seed=i) for i in range(4)]
     bank, jbank = load_bank(), jload_bank()
@@ -396,12 +734,17 @@ def test_instrumentation_matches_reference_on_bundled_bank():
                 and not isinstance(v, dict)}
         return keep, {s.name for s in o.recent_spans(4096)}
 
+    def totalled(o):
+        return {k[len("span."):-len(".calls")] for k, v in o.snapshot().items()
+                if k.startswith("span.") and k.endswith(".calls") and v}
+
     obs.reset()
     port = Scanner.compile(pats, ScanPlan(
         device=CPU, chunking=ChunkPolicy(n_chunks=n_chunks),
         construction=ConstructionPolicy(cache="off")))
     got = port.scan(docs)
     mine, my_spans = measured(obs)
+    my_totalled = totalled(obs)
     jobs.reset()
     ref = JScanner.compile(jpats, JScanPlan(
         chunking=JChunkPolicy(n_chunks=n_chunks),
@@ -417,7 +760,9 @@ def test_instrumentation_matches_reference_on_bundled_bank():
     theirs = {k: v for k, v in theirs.items()
               if not k.startswith("cache.rounds.")}   # no twin in the port
     assert mine == theirs
-    assert my_spans == their_spans
+    assert my_spans == their_spans | NEW_SPANS
+    assert my_totalled == my_spans | LOOP_SPANS
+    assert not their_spans & (NEW_SPANS | LOOP_SPANS)
     assert {"scanner.compile", "construct_bank", "construct_bank.bucket",
             "construction.round", "scanner.scan",
             "speculative.scan"} <= my_spans
