@@ -461,7 +461,7 @@ def walk_case(torch, ops, kernel, label, branch, tables, ch, ns, run,
     ``smem + L2``: rows >= R read from global memory); the wrapper's plan is
     held to it, and the plan and the share of lookups on staged rows are
     printed."""
-    P, n, _ = tables.shape
+    P, n, k = tables.shape
     B, L = ch.shape
     plan = ops.match_plan_of(tables, ch, ns, from_starts=starts is not None)
     check(plan.branch == branch,
@@ -477,9 +477,9 @@ def walk_case(torch, ops, kernel, label, branch, tables, ch, ns, run,
           flush=True)
     return dict(
         kernel=kernel, label=label,
-        shape=f"tables {P}x{n}x{K}, chunks {B}x{L}, n_starts {ns}",
+        shape=f"tables {P}x{n}x{k}, chunks {B}x{L}, n_starts {ns}",
         run=run, plain=plain, library=None,
-        nbytes=4 * (P * n * K + B * L + P * B * ns),
+        nbytes=4 * (P * n * k + B * L + P * B * ns),
         ops=2 * P * B * ns * L,
     )
 
@@ -511,18 +511,32 @@ def match_cases(torch, ops, ref, dev, ids, clock_mhz: float):
     # at budget 512, and all 23 SFA deltas at budget 20000 (7,184 rows, one
     # lane; uniform random tables visit every row alike, the design's worst
     # case); then n_starts = n past the budget on fewer chunks, and ragged
-    # edges.
+    # edges. Then the same three group shapes as the scan walks them: K + 1
+    # columns, the last the pad symbol (every state to itself), with an
+    # eighth of the symbols the pad. 87 x 21 words is no multiple of 4, so
+    # the enumeration tables are staged a word at a time, not 16 bytes.
     chunks = ids(K, (DOCS * N_CHUNKS, DOC_LEN // N_CHUNKS))
     few = chunks[:4096].contiguous()
-    for label, (P, n, ch, ns), branch in (
-            ("enumeration, budget 512", (5, 87, chunks, 87), "smem"),
-            ("sfa, budget 512", (18, 272, chunks, 1), "smem"),
+    padded = torch.where(ids(8, chunks.shape) == 0, K, chunks)
+    for label, (P, n, ch, ns), branch, width in (
+            ("enumeration, budget 512", (5, 87, chunks, 87), "smem", K),
+            ("sfa, budget 512", (18, 272, chunks, 1), "smem", K),
             ("sfa, budget 20000, random rows", (23, 7184, chunks, 1),
-             "smem + L2"),
-            ("n_starts = n, 7,184 states", (2, 7184, few, 7184), "smem + L2"),
-            ("ragged, n_starts = n", (3, 13, ids(K, (1001, 7)), 13), "smem"),
-            ("ragged, n_starts = 1", (3, 13, ids(K, (1001, 7)), 1), "smem")):
-        tables = ids(n, (P, n, K))
+             "smem + L2", K),
+            ("n_starts = n, 7,184 states", (2, 7184, few, 7184), "smem + L2",
+             K),
+            ("ragged, n_starts = n", (3, 13, ids(K, (1001, 7)), 13), "smem",
+             K),
+            ("ragged, n_starts = 1", (3, 13, ids(K, (1001, 7)), 1), "smem",
+             K),
+            ("enumeration, budget 512, pad", (5, 87, padded, 87), "smem",
+             K + 1),
+            ("sfa, budget 512, pad", (18, 272, padded, 1), "smem", K + 1),
+            ("sfa, budget 20000, random rows, pad", (23, 7184, padded, 1),
+             "smem + L2", K + 1)):
+        tables = ids(n, (P, n, width))
+        if width > K:
+            tables[:, :, K] = torch.arange(n, dtype=torch.int32, device=dev)
         cases.append(walk_case(
             torch, ops, "match_bank_chunks", label, branch, tables, ch, ns,
             lambda a=(tables, ch, ns): ops.match_bank_chunks(*a),
@@ -535,11 +549,13 @@ def match_cases(torch, ops, ref, dev, ids, clock_mhz: float):
 
 def bundled_cases(torch, ops, ref, dev, main) -> list:
     """``match_bank_chunks`` on the bundled bank's own tables, as the main
-    path's scanners compiled them (run after it, so its compiles stay
-    cold): the budget-512 enumeration tables and SFA deltas and the
-    budget-20000 deltas on random chunks of the scan's shape (the walks stay
-    near state 0), and one stream piece of the single phase: 2^22 / 64
-    residues in blocks of the stream's n_chunks x block_len through the
+    path's scanners compiled them and walk them (``walk_tables`` /
+    ``walk_deltas``: K + 1 columns, the last the pad symbol; run after the
+    main path, so its compiles stay cold): the budget-512 enumeration tables
+    and SFA deltas and the budget-20000 deltas on random chunks of the
+    scan's shape with an eighth of the symbols the pad (the walks stay near
+    state 0), and one stream piece of the single phase: 2^22 / 64 residues
+    in blocks of the stream's n_chunks x block_len, no pad, through the
     budget-20000 deltas — a small launch."""
     rng = np.random.default_rng(SEED + 1)
 
@@ -550,11 +566,12 @@ def bundled_cases(torch, ops, ref, dev, main) -> list:
     runs = main["runs"]
     g512 = {g.mode: g for g in runs["budget 512 (auto)"]["scanner"].groups}
     s20k = runs["budget 20000 (sfa)"]["scanner"]
-    enum, sfa512 = g512["enumeration"].tables, g512["sfa"].deltas
-    sfa20k = s20k.groups[0].deltas
+    enum, sfa512 = g512["enumeration"].walk_tables, g512["sfa"].walk_deltas
+    sfa20k = s20k.groups[0].walk_deltas
     sess = s20k.open_stream()
     n_chunks, block_len = sess.n_chunks, sess.block_len
     chunks = ids(K, (DOCS * N_CHUNKS, DOC_LEN // N_CHUNKS))
+    chunks = torch.where(ids(8, chunks.shape) == 0, K, chunks)
     piece = ids(K, (SEQ_LEN // STREAM_PIECES // (n_chunks * block_len)
                     * n_chunks, block_len))
     cases = []
@@ -1022,11 +1039,16 @@ def main_path(torch, ops, corpus) -> dict:
           "largest SFA at budget 20000 has 7,184 states")
     for name, r in runs.items():
         check(r["hits"].shape == (23, DOCS), f"{name}: hit matrix shape")
-    # The kernel cases above use these group shapes.
+    # The kernel cases above use these group shapes; the walks read them
+    # with the pad symbol's column.
     g512 = {g.mode: g for g in r512["scanner"].groups}
+    g20k = r20k["scanner"].groups[0]
     check(tuple(g512["enumeration"].tables.shape) == (5, 87, K)
           and tuple(g512["sfa"].deltas.shape) == (18, 272, K)
-          and tuple(r20k["scanner"].groups[0].deltas.shape) == (23, 7184, K),
+          and tuple(g20k.deltas.shape) == (23, 7184, K)
+          and tuple(g512["enumeration"].walk_tables.shape) == (5, 87, K + 1)
+          and tuple(g512["sfa"].walk_deltas.shape) == (18, 272, K + 1)
+          and tuple(g20k.walk_deltas.shape) == (23, 7184, K + 1),
           "main-path table shapes match the kernel cases")
     return dict(runs=runs, launches=launches)
 
@@ -1041,12 +1063,12 @@ def plain_hits(torch, X, kref, scanner, corpus) -> np.ndarray:
     head = torch.as_tensor(corpus, device=scanner.device)
     for g in scanner.groups:
         if g.mode == "sfa":
-            maps = X.bank_doc_mappings_sfa(g.deltas, g.sfa_maps, head,
+            maps = X.bank_doc_mappings_sfa(g.walk_deltas, g.sfa_maps, head,
                                            N_CHUNKS,
                                            match_fn=kref.match_bank_chunks,
                                            fold_rows=kref.compose_fold_rows)
         else:
-            maps = X.bank_doc_mappings(g.tables, head, N_CHUNKS,
+            maps = X.bank_doc_mappings(g.walk_tables, head, N_CHUNKS,
                                        match_fn=kref.match_bank_chunks,
                                        monoid=plain_fn)
         hits[g.indices] = X.hits_of_mappings(
@@ -1098,13 +1120,24 @@ def twins(torch, corpus, main) -> dict:
               and np.array_equal(ref_res.counts,
                                  kernel_hits[:, :REF_DOCS].sum(1)),
               f"{name}: reference backend hits and census")
+        # Docs of many lengths: the kernel scanner's length ladder (padded
+        # batches) against the reference backend's one batch a length.
+        lens = np.random.default_rng(SEED + 2).integers(0, DOC_LEN + 1,
+                                                        REF_DOCS)
+        ragged = [sub[d, :L] for d, L in enumerate(lens)]
+        ladder = main["runs"][name]["scanner"].scan(ragged).hits
+        check(np.array_equal(ladder, sc_ref.scan(ragged).hits)
+              and ladder.any(),
+              f"{name}: ladder scan of {REF_DOCS} ragged docs equals the "
+              f"reference backend")
         out[name] = dict(construct_kernel_s=t_kern, construct_plain_s=t_plain,
                          rounds=kern.stats.rounds, scan_plain_s=t_pscan,
                          reference_s=t_ref)
         print(f"[twins] {name}: construct_bank kernel {t_kern:.3f} s / plain "
               f"{t_plain:.3f} s ({kern.stats.rounds} rounds, SFAs equal); "
               f"plain scan {t_pscan:.3f} s, hits equal; reference backend "
-              f"{REF_DOCS} docs {t_ref:.3f} s, hits equal", flush=True)
+              f"{REF_DOCS} docs {t_ref:.3f} s, hits equal; {REF_DOCS} "
+              f"ragged docs, ladder hits equal", flush=True)
     return out
 
 
@@ -1269,7 +1302,8 @@ def plain_spec_stats(torch, kref, scanner, corpus) -> dict:
         if g.mode != "speculative":
             continue
         spec = torch.as_tensor(g._spec_profile, device=scanner.device)
-        args = (g.tables, spec, g.starts.to(torch.int32), head, N_CHUNKS,
+        args = (g.walk_tables, spec, g.starts.to(torch.int32), head,
+                N_CHUNKS,
                 scanner.plan.speculation.max_repair_rounds)
         kern = speculative_bank_finals(*args)
         plain = speculative_bank_finals(*args,
@@ -1301,7 +1335,7 @@ def plain_stream_stats(torch, kref, scanner, seq) -> dict:
     for g in scanner.groups:
         if g.mode != "speculative":
             continue
-        tables = g.tables.cpu()
+        tables = g.walk_tables.cpu()
         spec = torch.as_tensor(g._spec_profile, dtype=torch.int32)
         exits = kref.match_bank_chunks(tables, chunks, spec.shape[1], spec)
         _, totals = kref.spec_resolve_chain(

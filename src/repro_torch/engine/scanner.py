@@ -33,6 +33,7 @@ reference.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
@@ -62,6 +63,9 @@ from .streaming import StreamResult, StreamSession
 obs.counter("engine.compiles", help="Scanner.compile calls")
 obs.counter("engine.scans", help="Scanner scan/census calls")
 obs.counter("engine.docs_scanned", help="documents scanned")
+obs.counter("engine.scan_symbols", help="document symbols scanned")
+obs.counter("engine.scan_pad_symbols",
+            help="pad symbols in the length-bucketed batches of scans")
 obs.counter("speculative.total_chunks",
             help="chunks executed speculatively")
 obs.counter("speculative.hit_chunks",
@@ -73,6 +77,11 @@ obs.counter("speculative.fallback_lanes",
             help="lanes handed to the exact enumeration fallback")
 obs.gauge("speculative.hit_rate",
           help="speculation hit rate of the last scan")
+
+#: Growth ratio of the length ladder ``Scanner.scan`` batches a list of
+#: documents by (:func:`_ladder_rungs`): about 12 % pad symbols on Swiss-Prot
+#: lengths, one batch for every ~10 distinct lengths.
+SCAN_LADDER_RATIO = 1.25
 
 
 # --------------------------------------------------------------------------
@@ -143,10 +152,10 @@ class PatternGroup:
     indices: np.ndarray            # positions in the scanner's pattern order
     bank: PatternBank              # sub-bank (host arrays)
     mode: str                      # "sfa" | "enumeration" | "speculative"
-    tables: torch.Tensor = None    # (Pg, n, k) int32
+    walk_tables: torch.Tensor = None  # (Pg, n, k + 1) int32: column k, pad
     accepting: torch.Tensor = None  # (Pg, n) bool
     starts: torch.Tensor = None    # (Pg,) int64
-    deltas: torch.Tensor = None    # (Pg, S, k) int32 — stacked SFA tables
+    walk_deltas: torch.Tensor = None  # (Pg, S, k + 1) int32 — stacked SFAs
     sfa_maps: torch.Tensor = None  # (Pg, S, n) int32 — SFA state -> mapping
     sfa_states: np.ndarray | None = None  # (Pg,) true SFA state counts
     _dist_fn: Any = field(default=None, repr=False)
@@ -157,26 +166,51 @@ class PatternGroup:
     def n(self) -> int:
         return self.bank.n_max
 
+    @property
+    def tables(self) -> torch.Tensor:
+        """(Pg, n, k) view of :attr:`walk_tables` without the pad column."""
+        return self.walk_tables[..., :-1]
+
+    @property
+    def deltas(self) -> torch.Tensor | None:
+        """(Pg, S, k) view of :attr:`walk_deltas` without the pad column."""
+        d = self.walk_deltas
+        return None if d is None else d[..., :-1]
+
+
+def _ladder_rungs(lengths: np.ndarray, n_chunks: int) -> np.ndarray:
+    """Each document length's rung on the scan's length ladder: rung 0 holds
+    lengths up to ``n_chunks``, and each rung's top is the one below times
+    :data:`SCAN_LADDER_RATIO`, rounded up to a multiple of ``n_chunks``."""
+    tops = [n_chunks]
+    while tops[-1] < lengths.max(initial=0):
+        grown = -(-math.ceil(tops[-1] * SCAN_LADDER_RATIO) // n_chunks)
+        tops.append(max(grown, tops[-1] // n_chunks + 1) * n_chunks)
+    return np.searchsorted(tops, lengths)
+
 
 def _stack_sfas(sfas: Sequence[SFA], n_max: int) -> tuple:
-    """Stack per-pattern SFAs into padded (P, S_max, k) + (P, S_max, n_max).
+    """Stack per-pattern SFAs into padded (P, S_max, k + 1) +
+    (P, S_max, n_max).
 
-    Delta rows ``s >= S_i`` are self-loops (inert, gathers stay in range)
-    and mapping rows/columns pad with the identity, so an SFA-mode chunk
-    function equals the enumeration chunk function on the padded layout.
+    Delta rows ``s >= S_i`` are self-loops (inert, gathers stay in range),
+    as is column ``k`` of every row: the pad symbol. Mapping rows/columns
+    pad with the identity, so an SFA-mode chunk function equals the
+    enumeration chunk function on the padded layout.
     """
     S_max = max(s.n_states for s in sfas)
     k = sfas[0].delta.shape[1]
     Pg = len(sfas)
-    deltas = np.empty((Pg, S_max, k), dtype=np.int32)
+    deltas = np.empty((Pg, S_max, k + 1), dtype=np.int32)
     maps = np.empty((Pg, S_max, n_max), dtype=np.int32)
-    pad_rows = np.repeat(np.arange(S_max, dtype=np.int32)[:, None], k, axis=1)
+    pad_rows = np.repeat(np.arange(S_max, dtype=np.int32)[:, None], k + 1,
+                         axis=1)
     ident = np.arange(n_max, dtype=np.int32)
     for p, s in enumerate(sfas):
         S_i = s.n_states
         n_i = s.mappings.shape[1]
         deltas[p] = pad_rows
-        deltas[p, :S_i] = s.delta
+        deltas[p, :S_i, :k] = s.delta
         maps[p] = ident
         maps[p, :S_i, :n_i] = s.mappings
         maps[p, :S_i, n_i:] = ident[n_i:]
@@ -410,14 +444,21 @@ class Scanner:
     def _build_group(indices, dfas, gids, mode, sfas, plan, device,
                      mesh) -> PatternGroup:
         bank = PatternBank.from_dfas(dfas, gids)
-        tables, accepting, starts = bank.to(device)
+        Pg, n, k = bank.tables.shape
+        # Column k is the pad symbol: every state to itself.
+        tables = np.empty((Pg, n, k + 1), dtype=np.int32)
+        tables[..., :k] = bank.tables
+        tables[..., k] = np.arange(n, dtype=np.int32)
         g = PatternGroup(
             indices=np.asarray(indices, dtype=np.int64), bank=bank, mode=mode,
-            tables=tables, accepting=accepting, starts=starts,
+            walk_tables=torch.as_tensor(tables, device=device),
+            accepting=torch.as_tensor(bank.accepting, device=device),
+            starts=torch.as_tensor(bank.starts, dtype=torch.int64,
+                                   device=device),
         )
         if mode == "sfa":
             deltas, maps, sizes = _stack_sfas(sfas, bank.n_max)
-            g.deltas = torch.as_tensor(deltas, device=device)
+            g.walk_deltas = torch.as_tensor(deltas, device=device)
             g.sfa_maps = torch.as_tensor(maps, device=device)
             g.sfa_states = sizes
         if mesh is not None:
@@ -436,6 +477,19 @@ class Scanner:
         sym = {c: i for i, c in enumerate(self.alphabet)}
         return np.asarray([sym[c] for c in text], dtype=np.int32)
 
+    def _encoded(self, docs) -> list:
+        """A str, or a sequence of str and symbol arrays -> int32 arrays."""
+        if isinstance(docs, str):
+            docs = [docs]
+        return [self.encode(d) if isinstance(d, str)
+                else np.asarray(d, dtype=np.int32) for d in docs]
+
+    def _check_symbols(self, corpus: np.ndarray) -> None:
+        if corpus.size and (corpus.min() < 0
+                            or corpus.max() >= self.n_symbols):
+            raise ValueError(
+                f"document symbols must lie in [0, {self.n_symbols})")
+
     def _length_batches(self, docs) -> list:
         """Docs -> [(doc indices, (Dg, L) int32 corpus)], one batch per doc
         length (a 2-D array is one batch as it stands)."""
@@ -443,10 +497,7 @@ class Scanner:
             batches = [(np.arange(docs.shape[0]), docs.astype(np.int32,
                                                               copy=False))]
         else:
-            if isinstance(docs, str):
-                docs = [docs]
-            enc = [self.encode(d) if isinstance(d, str)
-                   else np.asarray(d, dtype=np.int32) for d in docs]
+            enc = self._encoded(docs)
             by_len: dict = {}
             for d, e in enumerate(enc):
                 by_len.setdefault(len(e), []).append(d)
@@ -456,11 +507,50 @@ class Scanner:
                           np.zeros((len(idxs), 0), dtype=np.int32))
                 batches.append((np.asarray(idxs), corpus))
         for _, corpus in batches:
-            if corpus.size and (corpus.min() < 0
-                                or corpus.max() >= self.n_symbols):
-                raise ValueError(
-                    f"document symbols must lie in [0, {self.n_symbols})")
+            self._check_symbols(corpus)
         return batches
+
+    def _ladder_batches(self, docs) -> list:
+        """``scan``'s batches of a list of docs -> [(doc indices, (Dg, W)
+        int32 corpus, (Dg,) lengths)], one for each occupied rung of the
+        length ladder (:func:`_ladder_rungs`), rows in doc order. ``W`` is
+        the rung's longest doc rounded up to ``n_chunks``; beyond each doc's
+        end its row holds the pad symbol ``n_symbols``, which the group's
+        ``walk_*`` tables map to the identity, so no batch has a ragged
+        tail. A 2-D array is one batch as it stands (lengths ``None``), for
+        ``scan`` to pad on the device."""
+        if isinstance(docs, np.ndarray) and docs.ndim == 2:
+            corpus = docs.astype(np.int32, copy=False)
+            self._check_symbols(corpus)
+            return [(np.arange(corpus.shape[0]), corpus, None)]
+        enc = self._encoded(docs)
+        lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
+        n_chunks = self.plan.chunking.n_chunks
+        rungs = _ladder_rungs(lens, n_chunks)
+        batches = []
+        for r in np.unique(rungs):
+            idxs = np.flatnonzero(rungs == r)
+            L = lens[idxs]
+            W = -(-int(L.max()) // n_chunks) * n_chunks
+            symbols = np.concatenate([enc[d] for d in idxs])
+            self._check_symbols(symbols)
+            corpus = np.full((len(idxs), W), self.n_symbols, dtype=np.int32)
+            corpus[np.arange(W) < L[:, None]] = symbols
+            batches.append((idxs, corpus, L))
+        return batches
+
+    @staticmethod
+    def _group_parts(g: PatternGroup, idxs, corpus: np.ndarray,
+                     lengths) -> list:
+        """What a group walks of a batch: [(doc indices, corpus)], the batch
+        itself, or a speculative group's ladder batch a length at a time,
+        ascending (its chunk statistics are the reference's only at the
+        docs' own lengths)."""
+        if g.mode != "speculative" or lengths is None:
+            return [(idxs, corpus)]
+        return [(idxs[lengths == L],
+                 np.ascontiguousarray(corpus[lengths == L, :L]))
+                for L in np.unique(lengths)]
 
     # -- the chunk-function core -------------------------------------------
 
@@ -468,11 +558,12 @@ class Scanner:
                             corpus_t: torch.Tensor) -> torch.Tensor:
         """Final mapping of every (pattern-in-group, doc): -> (Pg, D, n) on
         the scanner's device. ``corpus_t`` is ``corpus`` already on the
-        device (copied once per scan batch, shared by the groups). The
-        kernel handles the head (the largest prefix divisible by
-        ``n_chunks``); a ragged tail is composed symbol by symbol."""
+        device (copied once per scan batch, shared by the groups), where a
+        ladder batch may hold pad symbols. The kernel handles the head (the
+        largest prefix divisible by ``n_chunks``); a ragged tail, which no
+        ladder batch has, is composed symbol by symbol."""
         n_chunks = self.plan.chunking.n_chunks
-        D, L = corpus.shape
+        D, L = corpus_t.shape
         head_len = L - (L % n_chunks)
         Pg, n = len(g.indices), g.n
         if head_len:
@@ -485,7 +576,7 @@ class Scanner:
             # Each (doc, state) lane is a state walking its doc's tail.
             tail = corpus_t[:, head_len:].repeat_interleave(n, dim=0)
             maps = X.advance_states_sequential(
-                g.tables, maps.reshape(Pg, D * n), tail).view(Pg, D, n)
+                g.walk_tables, maps.reshape(Pg, D * n), tail).view(Pg, D, n)
         return maps
 
     def _check_mesh_docs(self, D: int) -> None:
@@ -501,16 +592,16 @@ class Scanner:
         if self.mesh is not None:
             self._check_mesh_docs(head.shape[0])
             if g.mode == "sfa":
-                return g._dist_fn(g.deltas, g.sfa_maps, head)
-            return g._dist_fn(g.tables, head)
+                return g._dist_fn(g.walk_deltas, g.sfa_maps, head)
+            return g._dist_fn(g.walk_tables, head)
         if self.plan.backend == "reference":
             maps = _reference_doc_mappings(
                 g.bank.tables, corpus[:, : head.shape[1]])
             return torch.as_tensor(maps, device=self.device)
         if g.mode == "sfa":
-            return X.bank_doc_mappings_sfa(g.deltas, g.sfa_maps, head,
+            return X.bank_doc_mappings_sfa(g.walk_deltas, g.sfa_maps, head,
                                            n_chunks)
-        return X.bank_doc_mappings(g.tables, head, n_chunks)
+        return X.bank_doc_mappings(g.walk_tables, head, n_chunks)
 
     # -- the speculative core ----------------------------------------------
 
@@ -622,10 +713,10 @@ class Scanner:
                 head = corpus_t[:, :head_len]
                 if self.mesh is not None:
                     self._check_mesh_docs(D)
-                    out = g._spec_dist_fn(g.tables, spec, starts, head)
+                    out = g._spec_dist_fn(g.walk_tables, spec, starts, head)
                 else:
                     out = speculative_bank_finals(
-                        g.tables, spec, starts, head, n_chunks,
+                        g.walk_tables, spec, starts, head, n_chunks,
                         pol.max_repair_rounds)
                 finals, resolved = out[0], out[1]
                 stats = SpeculationStats.of(out, Pg * D * n_chunks)
@@ -634,7 +725,7 @@ class Scanner:
                     with obs.span("speculative.fallback",
                                   lanes=int(bad.numel())):
                         maps = X.bank_doc_mappings(
-                            g.tables, head[bad].contiguous(), n_chunks)
+                            g.walk_tables, head[bad].contiguous(), n_chunks)
                     exact = maps.gather(2, g.starts[:, None, None].expand(
                         Pg, maps.shape[1], 1))[:, :, 0]
                     finals[:, bad] = torch.where(resolved[:, bad],
@@ -643,7 +734,7 @@ class Scanner:
                 finals = starts[:, None].expand(Pg, D)
             if head_len < L:
                 finals = X.advance_states_sequential(
-                    g.tables, finals, corpus_t[:, head_len:])
+                    g.walk_tables, finals, corpus_t[:, head_len:])
         obs.counter("speculative.total_chunks").inc(stats.total_chunks)
         obs.counter("speculative.hit_chunks").inc(stats.hit_chunks)
         obs.counter("speculative.repaired_chunks").inc(stats.repaired_chunks)
@@ -658,51 +749,100 @@ class Scanner:
     def scan(self, docs) -> ScanResult:
         """Match a corpus against the bank -> :class:`ScanResult` (P, D).
 
-        Spans: ``scanner.scan.prepare`` once (encoding, one batch a doc
-        length, the symbol check), then, as loop spans, for each batch and
-        group ``scanner.scan.launch`` (the batch's upload in its first
-        group, the walk and fold launches), ``scanner.scan.readback`` (the
-        host waits for the device, then copies) and ``scanner.scan.scatter``
-        (the group's hits into the (P, D) matrix)."""
+        A list of docs is batched by the length ladder
+        (:meth:`_ladder_batches`): docs of neighbouring lengths share one
+        batch, padded with the neutral pad symbol to a multiple of
+        ``n_chunks``; a 2-D array is one batch, padded so on the device. The
+        ``reference`` backend (host tables of ``n_symbols`` columns) and the
+        mesh path (a batch's doc count must divide the mesh) keep one batch
+        a doc length (:meth:`_length_batches`), and a speculative group
+        walks a ladder batch a length at a time (:meth:`_group_parts`).
+
+        Spans: ``scanner.scan.prepare`` once (encoding, batching, the
+        symbol check), then, as loop spans, for each batch and group (and
+        length, in a speculative group) ``scanner.scan.launch`` (the
+        batch's upload and device pad in its first group, the walk and fold
+        launches), ``scanner.scan.readback`` (the host waits for the
+        device, then copies) and ``scanner.scan.scatter`` (the group's hits
+        into the (P, D) matrix). Counters: ``engine.scan_symbols`` (the
+        docs' symbols) and ``engine.scan_pad_symbols`` (the pad symbols of
+        the batches some group walks whole, i.e. of a bank not speculative
+        alone)."""
         spec_stats: SpeculationStats | None = None
+        n_chunks = self.plan.chunking.n_chunks
+        exact = self.mesh is not None or self.plan.backend == "reference"
+        padded = not exact and any(g.mode != "speculative"
+                                   for g in self.groups)
         with obs.span("scanner.scan", patterns=self.n_patterns) as span:
             self.last_trace_id = obs.current_trace_id() or self.last_trace_id
             with obs.span("scanner.scan.prepare"):
-                batches = self._length_batches(docs)
-                D = sum(len(idxs) for idxs, _ in batches)
+                if exact:
+                    batches = [(idxs, corpus, None) for idxs, corpus
+                               in self._length_batches(docs)]
+                else:
+                    batches = self._ladder_batches(docs)
+                D = sum(len(idxs) for idxs, _, _ in batches)
                 hits = np.zeros((self.n_patterns, D), dtype=bool)
             if span is not None:
                 span.attrs["docs"] = D
             launch = obs.loop_span("scanner.scan.launch")
             readback = obs.loop_span("scanner.scan.readback")
             scatter = obs.loop_span("scanner.scan.scatter")
-            for idxs, corpus in batches:
+            symbols = pads = 0
+            for idxs, corpus, lengths in batches:
+                L = corpus.shape[1]
+                W = -(-L // n_chunks) * n_chunks if padded else L
+                real = corpus.size if lengths is None else int(lengths.sum())
+                symbols += real
+                pads += len(idxs) * W - real if padded else 0
                 corpus_t = None
                 for g in self.groups:
-                    with launch:
-                        if corpus_t is None:
-                            corpus_t = torch.as_tensor(corpus,
-                                                       device=self.device)
-                        if g.mode == "speculative" and corpus.shape[1]:
-                            finals, st = self._group_doc_finals(g, corpus,
-                                                                corpus_t)
-                            spec_stats = st if spec_stats is None \
-                                else spec_stats.merged(st)
-                            acc = g.accepting.gather(1,
-                                                     finals.to(torch.int64))
-                        else:
-                            maps = self._group_doc_mappings(g, corpus,
-                                                            corpus_t)
-                            acc = X.hits_of_mappings(maps, g.accepting,
-                                                     g.starts)
-                    with readback:
-                        acc = acc.cpu().numpy()
-                    with scatter:
-                        hits[np.ix_(g.indices, idxs)] = acc
+                    for part_idxs, part in self._group_parts(g, idxs, corpus,
+                                                             lengths):
+                        with launch:
+                            if part is not corpus:
+                                part_t = torch.as_tensor(part,
+                                                         device=self.device)
+                            else:
+                                if corpus_t is None:
+                                    corpus_t = self._on_device(corpus, W)
+                                part_t = corpus_t
+                            acc, st = self._group_hits(g, part, part_t)
+                            if st is not None:
+                                spec_stats = st if spec_stats is None \
+                                    else spec_stats.merged(st)
+                        with readback:
+                            acc = acc.cpu().numpy()
+                        with scatter:
+                            hits[np.ix_(g.indices, part_idxs)] = acc
         obs.counter("engine.scans").inc()
         obs.counter("engine.docs_scanned").inc(D)
+        obs.counter("engine.scan_symbols").inc(symbols)
+        obs.counter("engine.scan_pad_symbols").inc(pads)
         self.last_speculation = spec_stats
         return ScanResult(hits=hits, ids=self.ids, speculation=spec_stats)
+
+    def _on_device(self, corpus: np.ndarray, width: int) -> torch.Tensor:
+        """A batch on the device, its rows padded with the pad symbol to
+        ``width`` columns there."""
+        corpus_t = torch.as_tensor(corpus, device=self.device)
+        if width > corpus.shape[1]:
+            corpus_t = torch.nn.functional.pad(
+                corpus_t, (0, width - corpus.shape[1]), value=self.n_symbols)
+        return corpus_t
+
+    def _group_hits(self, g: PatternGroup, corpus: np.ndarray,
+                    corpus_t: torch.Tensor) -> tuple:
+        """One batch under one group -> ((Pg, D) accept flags on the
+        device, the group's SpeculationStats or None). A speculative group
+        walks the docs' own symbols, the first ``corpus.shape[1]`` columns
+        of ``corpus_t``."""
+        if g.mode == "speculative" and corpus.shape[1]:
+            finals, st = self._group_doc_finals(
+                g, corpus, corpus_t[:, :corpus.shape[1]])
+            return g.accepting.gather(1, finals.to(torch.int64)), st
+        maps = self._group_doc_mappings(g, corpus, corpus_t)
+        return X.hits_of_mappings(maps, g.accepting, g.starts), None
 
     def census(self, docs) -> np.ndarray:
         """Per-pattern hit counts over a corpus, (P,) int32."""

@@ -144,10 +144,11 @@ class StreamSession:
                     _reference_doc_mappings(g.bank.tables, blocks),
                     device=sc.device)
             elif g.mode == "sfa":
-                bm = X.bank_doc_mappings_sfa(g.deltas, g.sfa_maps, blocks_t,
-                                             self.n_chunks)
+                bm = X.bank_doc_mappings_sfa(g.walk_deltas, g.sfa_maps,
+                                             blocks_t, self.n_chunks)
             else:
-                bm = X.bank_doc_mappings(g.tables, blocks_t, self.n_chunks)
+                bm = X.bank_doc_mappings(g.walk_tables, blocks_t,
+                                         self.n_chunks)
             # Apply the prefix first, then the blocks in order: one fold.
             self._prefix[gi] = X.FN.fold(self._prefix[gi], bm)
 
@@ -167,10 +168,11 @@ class StreamSession:
                                    device=sc.device)
             self._spec_prof[gi] = prof
         chunks = blocks_t.view(-1, self.block_len)     # (n_blocks·C, Lc)
-        exits = ops.match_bank_chunks(g.tables, chunks, prof.shape[1], prof)
+        exits = ops.match_bank_chunks(g.walk_tables, chunks, prof.shape[1],
+                                      prof)
         self._state[gi], totals = ops.spec_resolve_chain(
-            g.tables, prof, self._state[gi], exits, chunks, self.n_chunks,
-            pol.max_repair_rounds)
+            g.walk_tables, prof, self._state[gi], exits, chunks,
+            self.n_chunks, pol.max_repair_rounds)
         self._spec_chunks += len(g.indices) * chunks.shape[0]
         acc = self._spec_totals
         if acc is None:
@@ -192,12 +194,13 @@ class StreamSession:
             for gi, g in enumerate(sc.groups):
                 if g.mode == "speculative":
                     self._state[gi] = X.advance_states_sequential(
-                        g.tables, self._state[gi][:, None], tail[None])[:, 0]
+                        g.walk_tables, self._state[gi][:, None],
+                        tail[None])[:, 0]
                     continue
                 # Each of the n prefix entries is a state walking the tail.
                 n = self._prefix[gi].shape[1]
                 self._prefix[gi] = X.advance_states_sequential(
-                    g.tables, self._prefix[gi], tail.expand(n, len(tail)))
+                    g.walk_tables, self._prefix[gi], tail.expand(n, len(tail)))
             self._buf = np.zeros(0, dtype=np.int32)
 
         mapping = None if self._has_spec else np.broadcast_to(

@@ -23,7 +23,9 @@ from repro.engine import ChunkPolicy as JChunkPolicy  # noqa: E402
 from repro.engine import ConstructionPolicy as JConstructionPolicy  # noqa: E402
 from repro.engine import ScanPlan as JScanPlan  # noqa: E402
 from repro.engine import Scanner as JScanner  # noqa: E402
+from repro.engine import SpeculationPolicy as JSpeculationPolicy  # noqa: E402
 from repro.engine import executors as JX  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.construction import StateBlowup  # noqa: E402
 from repro_torch.core.dfa import random_dfa  # noqa: E402
 from repro_torch.core.prosite import load_bank, synthetic_protein  # noqa: E402
@@ -32,8 +34,13 @@ from repro_torch.engine import (  # noqa: E402
     ConstructionPolicy,
     ScanPlan,
     Scanner,
+    SpeculationPolicy,
 )
 from repro_torch.engine import executors as X  # noqa: E402
+from repro_torch.engine.scanner import (  # noqa: E402
+    SCAN_LADDER_RATIO,
+    _reference_doc_mappings,
+)
 from repro_torch.interop import bank_from_arrays, sfa_stack_from_arrays  # noqa: E402
 
 N_CHUNKS = 4
@@ -213,3 +220,188 @@ def test_interop_validates_arrays():
                                   np.zeros((1, 2, 4), np.int32), [2])
     bank = bank_from_arrays(tables, np.zeros((2, 3), bool), [0, 0])
     assert bank.n_patterns == 2 and list(bank.n_states) == [3, 3]
+
+
+# --------------------------------------------------------------------------
+# Scan's length ladder: docs of neighbouring lengths share one batch, padded
+# with the neutral pad symbol k to a multiple of n_chunks
+# --------------------------------------------------------------------------
+
+LADDER_K = 6
+# The edge cases around n_chunks = 8, then 24 distinct lengths over rungs
+# 48..304 of the ladder (rung tops 56, 72, 96, 120, 152, 192, 240, 304).
+LADDER_LENGTHS = ([0, 1, 3, 7, 8, 9, 37, 40, 48]
+                  + sorted(np.random.default_rng(21).choice(
+                      np.arange(49, 300), 24, replace=False).tolist()))
+
+
+def _ladder_docs(seed=0, lengths=LADDER_LENGTHS):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, LADDER_K, size=L).astype(np.int32)
+            for L in lengths]
+
+
+def _ladder_scanner(mode, **plan):
+    """Small random DFAs under a forced mode; ``"mixed"`` is auto mode with
+    a budget that leaves one SFA, sends two DFAs to enumeration and the
+    40-state one to speculation."""
+    sizes = (3, 5, 4, 40) if mode == "mixed" else (3, 5, 4)
+    dfas = [random_dfa(n, LADDER_K, seed=90 + n) for n in sizes]
+    if mode == "mixed":
+        return Scanner.compile(dfas, device="cpu", mode="auto",
+                               sfa_state_budget=60,
+                               speculation=SpeculationPolicy(auto_states=20),
+                               **plan)
+    return Scanner.compile(dfas, device="cpu", mode=mode,
+                           sfa_state_budget=10_000, **plan)
+
+
+def _jax_ladder_scanner(mode):
+    """:func:`_ladder_scanner`'s bank and plan in the JAX package."""
+    sizes = (3, 5, 4, 40) if mode == "mixed" else (3, 5, 4)
+    dfas = [jrandom_dfa(n, LADDER_K, seed=90 + n) for n in sizes]
+    if mode == "mixed":
+        return JScanner.compile(dfas, JScanPlan(
+            mode="auto", sfa_state_budget=60,
+            speculation=JSpeculationPolicy(auto_states=20)))
+    return JScanner.compile(dfas, JScanPlan(mode=mode,
+                                            sfa_state_budget=10_000))
+
+
+def _walked_hits(scanner, docs):
+    """Each doc walked alone through the host tables, symbol by symbol."""
+    hits = np.zeros((scanner.n_patterns, len(docs)), dtype=bool)
+    for g in scanner.groups:
+        for d, doc in enumerate(docs):
+            maps = _reference_doc_mappings(g.bank.tables,
+                                           np.asarray(doc)[None])[:, 0]
+            finals = maps[np.arange(len(g.indices)), g.bank.starts]
+            hits[g.indices, d] = g.bank.accepting[
+                np.arange(len(g.indices)), finals]
+    return hits
+
+
+def _ladder_tops(top, n_chunks=8):
+    """The ladder's rung tops up to ``top``, restated: each the last times
+    the ratio, rounded up to a multiple of n_chunks."""
+    tops = [n_chunks]
+    while tops[-1] < top:
+        tops.append(max(tops[-1] + n_chunks,
+                        int(np.ceil(np.ceil(tops[-1] * SCAN_LADDER_RATIO)
+                                    / n_chunks)) * n_chunks))
+    return tops
+
+
+def _counted(fn, *names):
+    before = obs.snapshot()
+    out = fn()
+    after = obs.snapshot()
+    return out, [after.get(n, 0) - before.get(n, 0) for n in names]
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration", "speculative",
+                                  "mixed"])
+def test_ladder_scan_equals_reference_backend_and_walks(mode):
+    """Docs of lengths 0-48 around n_chunks and 24 distinct lengths over
+    eight rungs, and a 2-D array of a length no multiple of n_chunks: the
+    ``reference`` backend's hits (one batch a length) and each doc walked
+    alone, and the JAX package's scanner on the same DFAs and plan, bit
+    for bit; speculation's stats stay the exact-length scan's and the JAX
+    package's."""
+    port = _ladder_scanner(mode)
+    ref = _ladder_scanner(mode, backend="reference")
+    jax_ref = _jax_ladder_scanner(mode)
+    assert port.pattern_modes == jax_ref.pattern_modes
+    if mode == "mixed":
+        assert set(port.pattern_modes.values()) == {
+            "sfa", "enumeration", "speculative"}
+    docs = _ladder_docs()
+    got, want, jwant = port.scan(docs), ref.scan(docs), jax_ref.scan(docs)
+    assert np.array_equal(got.hits, want.hits)
+    assert np.array_equal(got.hits, jwant.hits)
+    assert np.array_equal(got.hits, _walked_hits(port, docs))
+    assert got.hits.any() and not got.hits.all()
+    arr = np.random.default_rng(4).integers(
+        0, LADDER_K, size=(9, 50)).astype(np.int32)
+    got2, want2, jwant2 = port.scan(arr), ref.scan(arr), jax_ref.scan(arr)
+    assert np.array_equal(got2.hits, want2.hits)
+    assert np.array_equal(got2.hits, jwant2.hits)
+    assert np.array_equal(got2.hits, _walked_hits(port, list(arr)))
+    if mode in ("speculative", "mixed"):
+        assert got.speculation.total_chunks > 0
+        for a, b in ((got, want), (got, jwant), (got2, want2),
+                     (got2, jwant2)):
+            assert asdict(a.speculation) == asdict(b.speculation)
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration", "speculative"])
+def test_ladder_refuses_the_pad_symbol(mode):
+    """The pad symbol k is the scanner's, never the user's: a doc holding it
+    is refused before any padding, in a list and in a 2-D array."""
+    port = _ladder_scanner(mode)
+    assert port.n_symbols == LADDER_K
+    bad = np.asarray([0, 1, LADDER_K, 2], dtype=np.int32)
+    with pytest.raises(ValueError, match="symbols must lie"):
+        port.scan([np.zeros(9, np.int32), bad])
+    with pytest.raises(ValueError, match="symbols must lie"):
+        port.scan(np.stack([bad, bad]))
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration", "speculative"])
+def test_ladder_launches_one_walk_a_rung(mode):
+    """N docs of distinct lengths: one walk a group for each occupied rung
+    in modes sfa and enumeration, and pad symbols as the ladder implies; a
+    speculative group walks each ladder batch a length at a time (its chunk
+    statistics are the reference's), so a bank of speculative groups alone
+    walks no pad."""
+    lengths = LADDER_LENGTHS[4:]                      # 8 and up, distinct
+    docs = _ladder_docs(1, lengths)
+    port = _ladder_scanner(mode)
+    assert len(port.groups) == 1
+    res, (calls, pads, real) = _counted(
+        lambda: port.scan(docs), "kernels.match_bank_chunks.calls",
+        "engine.scan_pad_symbols", "engine.scan_symbols")
+    assert real == sum(lengths)
+    if mode == "speculative":
+        assert pads == 0
+        assert res.speculation.fallback_lanes == 0
+        assert calls == len(lengths)
+        return
+    tops = _ladder_tops(max(lengths))
+    rungs = {}
+    for L in lengths:
+        rungs.setdefault(np.searchsorted(tops, L), []).append(L)
+    assert calls == len(rungs) < len(lengths)
+    assert len(rungs) >= 3
+    want = sum(len(ls) * (-(-max(ls) // 8) * 8) - sum(ls)
+               for ls in rungs.values())
+    assert pads == want > 0
+
+
+def test_ladder_pads_a_2d_array_on_the_device():
+    """A 2-D array is one batch: 50 symbols a row walk as 56, one launch."""
+    port = _ladder_scanner("sfa")
+    arr = np.random.default_rng(6).integers(
+        0, LADDER_K, size=(12, 50)).astype(np.int32)
+    _, (calls, pads, real) = _counted(
+        lambda: port.scan(arr), "kernels.match_bank_chunks.calls",
+        "engine.scan_pad_symbols", "engine.scan_symbols")
+    assert (calls, pads, real) == (1, 12 * 6, 12 * 50)
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration", "speculative"])
+def test_one_sequence_paths_keep_exact_lengths(mode):
+    """``mapping``, ``locate`` and ``census_windows`` keep their own
+    exact-length path: the ``reference`` backend's results on the ladder's
+    docs."""
+    port = _ladder_scanner(mode)
+    ref = _ladder_scanner(mode, backend="reference")
+    docs = _ladder_docs(2)
+    for doc in docs[1:10] + docs[-2:]:
+        assert np.array_equal(port.mapping(doc), ref.mapping(doc))
+        for p in range(port.n_patterns):
+            assert np.array_equal(port.locate(doc, p), ref.locate(doc, p))
+    seq = np.concatenate(docs[-3:])
+    for window, stride in ((48, 8), (40, 40), (37, 37)):
+        assert np.array_equal(port.census_windows(seq, window, stride).hits,
+                              ref.census_windows(seq, window, stride).hits)

@@ -577,8 +577,9 @@ def _span_calls(before):
 
 
 def test_scan_spans_one_a_batch_and_group():
-    """Documents of three lengths: one prepare span a scan, and a launch, a
-    readback and a scatter pass for each length batch and pattern group,
+    """Documents of three lengths on three rungs of the scan's length
+    ladder: one prepare span a scan, and a launch, a readback and a scatter
+    pass for each batch and pattern group,
     counted in the totals and kept out of the ring buffer."""
     sc = Scanner.compile(PATTERNS + ["PS00001"], _plan(SFACache()))
     docs = [synthetic_protein(L, seed=i)
@@ -635,13 +636,15 @@ def test_compile_spans_one_a_round_and_results_obs_off():
 def test_service_trace_keeps_its_buckets_after_a_scan_of_many_lengths(
         tmp_path):
     """A flush that compiles in size buckets and then scans documents of
-    1,400 distinct lengths (4,200 loop passes, more than the ring buffer's
-    4,096 records) still finds its whole trace in the ring:
+    1,400 distinct lengths on the ``reference`` backend, which keeps one
+    batch a length (4,200 loop passes, more than the ring buffer's 4,096
+    records), still finds its whole trace in the ring:
     ``ScanService.metrics()`` reads one bucket a ``construct_bank.bucket``
     span, and the trace's wall covers the compile."""
     cache = SFACache()
-    plan = ScanPlan(device=CPU, construction=ConstructionPolicy(
-        cache=cache, method="batched", bucketing="size"))
+    plan = ScanPlan(device=CPU, backend="reference",
+                    construction=ConstructionPolicy(
+                        cache=cache, method="batched", bucketing="size"))
     pats = [random_dfa(n, 20, seed=s)
             for s, n in enumerate([5] * 4 + [24] * 4)]
     docs = [synthetic_protein(L, seed=L) for L in range(1, 1401)]
@@ -759,6 +762,9 @@ def test_instrumentation_matches_reference_on_bundled_bank():
     assert mine["construction.rounds"] == port.construction_report.rounds
     theirs = {k: v for k, v in theirs.items()
               if not k.startswith("cache.rounds.")}   # no twin in the port
+    # The scan's symbol counters have no twin in the reference.
+    assert mine.pop("engine.scan_symbols") == sum(map(len, docs))
+    assert mine.pop("engine.scan_pad_symbols") == 0   # 96 = 24 x n_chunks
     assert mine == theirs
     assert my_spans == their_spans | NEW_SPANS
     assert my_totalled == my_spans | LOOP_SPANS

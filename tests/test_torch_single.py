@@ -206,9 +206,9 @@ def test_single_and_bank_executors_match_reference(seed):
     g = sc.groups[0]
     jwant = JX.match_bank_parallel(jnp.asarray(g.tables.numpy()),
                                    jnp.asarray(syms), 4)
-    got = X.match_bank_parallel(g.tables, _t(syms), 4)
+    got = X.match_bank_parallel(g.walk_tables, _t(syms), 4)
     assert np.array_equal(got.numpy(), np.asarray(jwant))
-    got = X.match_bank_parallel_sfa(g.deltas, g.sfa_maps, _t(syms), 4)
+    got = X.match_bank_parallel_sfa(g.walk_deltas, g.sfa_maps, _t(syms), 4)
     jgot = JX.match_bank_parallel_sfa(jnp.asarray(g.deltas.numpy()),
                                       jnp.asarray(g.sfa_maps.numpy()),
                                       jnp.asarray(syms), 4)
