@@ -372,8 +372,9 @@ class Scanner:
         self.n_max = max(d.n_states for d in dfas)
         self._dfas = dfas
         self.last_speculation: SpeculationStats | None = None
-        #: trace id of the last traced compile/scan through this scanner —
-        #: the key ``obs.trace_summary`` (and ``describe``) correlates on.
+        #: trace id of the last traced compile/scan/census through this
+        #: scanner — the key ``obs.trace_summary`` (and ``describe``)
+        #: correlates on.
         self.last_trace_id: str | None = None
         self.pattern_modes = {}
         for g in groups:
@@ -887,6 +888,14 @@ class Scanner:
         ``stride`` must divide ``window`` (default ``stride = window``:
         disjoint blocks). -> :class:`ScanResult` whose "docs" are the
         ``(len(seq) - window) // stride + 1`` full windows.
+
+        Spans: ``scanner.census`` (the call) and ``scanner.census.prepare``
+        (encoding, the symbol check, the block reshape, the upload), then,
+        as loop spans, for each pattern group ``scanner.census.fold`` (the
+        blocks' walk and rows fold, up to the block mappings),
+        ``scanner.census.windows`` (the prefix scans and the hit lookup)
+        and ``scanner.census.readback`` (the host waits for the device,
+        copies, and fills the group's rows of the hit matrix).
         """
         stride = window if stride is None else stride
         if window < 1 or stride < 1:
@@ -895,28 +904,42 @@ class Scanner:
             raise ValueError(
                 f"stride ({stride}) must divide window ({window}): the "
                 "prefix-scan census composes whole stride-blocks")
-        (_, enc), = self._length_batches([seq])
-        enc = enc[0]
-        L = len(enc)
-        m = window // stride
-        W = (L - window) // stride + 1 if L >= window else 0
-        hits = np.zeros((self.n_patterns, W), dtype=bool)
-        if W == 0:
-            return ScanResult(hits=hits, ids=self.ids)
-        B = W + m - 1
-        blocks = np.ascontiguousarray(enc[: B * stride].reshape(B, stride))
-        if self.mesh is not None:
-            # Blocks are the "docs" of the mesh path: pad the block axis to
-            # a multiple of the mesh size with zero rows, cropped below.
-            pad_rows = -B % mesh_size(self.mesh)
-            blocks = np.concatenate(
-                [blocks, np.zeros((pad_rows, stride), dtype=np.int32)])
-        blocks_t = torch.as_tensor(blocks, device=self.device)
-        for g in self.groups:
-            maps = self._group_doc_mappings(g, blocks, blocks_t)[:, :B]
-            wmaps = X.sliding_window_mappings(maps, m)            # (Pg, W, n)
-            acc = X.hits_of_mappings(wmaps, g.accepting, g.starts)
-            hits[g.indices, :] = acc.cpu().numpy()
+        with obs.span("scanner.census", patterns=self.n_patterns,
+                      window=window, stride=stride) as span:
+            self.last_trace_id = obs.current_trace_id() or self.last_trace_id
+            with obs.span("scanner.census.prepare"):
+                (_, enc), = self._length_batches([seq])
+                enc = enc[0]
+                L = len(enc)
+                m = window // stride
+                W = (L - window) // stride + 1 if L >= window else 0
+                if span is not None:
+                    span.attrs["windows"] = W
+                hits = np.zeros((self.n_patterns, W), dtype=bool)
+                if W == 0:
+                    return ScanResult(hits=hits, ids=self.ids)
+                B = W + m - 1
+                blocks = np.ascontiguousarray(
+                    enc[: B * stride].reshape(B, stride))
+                if self.mesh is not None:
+                    # Blocks are the "docs" of the mesh path: pad the block
+                    # axis to a multiple of the mesh size with zero rows,
+                    # cropped below.
+                    pad_rows = -B % mesh_size(self.mesh)
+                    blocks = np.concatenate(
+                        [blocks, np.zeros((pad_rows, stride), dtype=np.int32)])
+                blocks_t = torch.as_tensor(blocks, device=self.device)
+            fold = obs.loop_span("scanner.census.fold")
+            windows = obs.loop_span("scanner.census.windows")
+            readback = obs.loop_span("scanner.census.readback")
+            for g in self.groups:
+                with fold:
+                    maps = self._group_doc_mappings(g, blocks, blocks_t)[:, :B]
+                with windows:
+                    wmaps = X.sliding_window_mappings(maps, m)    # (Pg, W, n)
+                    acc = X.hits_of_mappings(wmaps, g.accepting, g.starts)
+                with readback:
+                    hits[g.indices, :] = acc.cpu().numpy()
         return ScanResult(hits=hits, ids=self.ids)
 
     def locate(self, doc, pattern=None) -> np.ndarray:

@@ -604,6 +604,53 @@ def test_scan_spans_one_a_batch_and_group():
     assert hits.shape == (3, 6)
 
 
+CENSUS_LOOPS = ("fold", "windows", "readback")
+
+
+def test_census_spans_one_a_call_and_a_pass_a_group():
+    """``census_windows`` of one sequence: the call and its preparation
+    closed once each (both kept in the ring buffer), one fold, windows and
+    readback pass for each pattern group, and the children's totals make up
+    the call's, ≥ 95 % of it."""
+    # PS00010's SFA blows past the default budget: an enumeration group
+    sc = Scanner.compile(PATTERNS + ["PS00010"], _plan(SFACache()))
+    seq = synthetic_protein(1 << 14, seed=5)
+    before = obs.snapshot("span")
+    hits = sc.census_windows(seq, 384, 48).hits
+    calls = _span_calls(before)
+    G = len(sc.groups)
+    assert sorted(g.mode for g in sc.groups) == ["enumeration", "sfa"]
+    assert calls == {"scanner.census": 1, "scanner.census.prepare": 1,
+                     **{f"scanner.census.{n}": G for n in CENSUS_LOOPS}}
+    summ = obs.trace_summary(sc.last_trace_id)
+    assert [s["name"] for s in summ["spans"]] == ["scanner.census",
+                                                 "scanner.census.prepare"]
+    W = ((1 << 14) - 384) // 48 + 1
+    assert summ["spans"][0]["attrs"] == {"patterns": 3, "window": 384,
+                                         "stride": 48, "windows": W}
+    d = snapshot_delta(before, obs.snapshot("span"))
+    children = d["span.scanner.census.prepare.ns"] + sum(
+        d[f"span.scanner.census.{n}.ns"] for n in CENSUS_LOOPS)
+    assert d["span.scanner.census.ns"] - d["span.scanner.census.self_ns"] \
+        == children
+    assert children >= 0.95 * d["span.scanner.census.ns"]
+    assert hits.shape == (3, W)
+
+
+def test_census_hits_equal_with_obs_off():
+    sc = Scanner.compile(PATTERNS + ["PS00010"], _plan(SFACache()))
+    seq = synthetic_protein(5000, seed=6)
+    on = sc.census_windows(seq, 96, 16).hits
+    before = obs.snapshot("span")
+    obs.disable()
+    try:
+        off = sc.census_windows(seq, 96, 16).hits
+    finally:
+        obs.enable()
+    assert not _span_calls(before)
+    assert on.any() and np.array_equal(on, off)
+
+
 def test_compile_spans_one_a_round_and_results_obs_off():
     """A batched compile: exactly one compact and one readback pass a
     construction round, one schedule pass before each round and one after
