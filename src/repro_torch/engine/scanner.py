@@ -66,6 +66,8 @@ obs.counter("engine.docs_scanned", help="documents scanned")
 obs.counter("engine.scan_symbols", help="document symbols scanned")
 obs.counter("engine.scan_pad_symbols",
             help="pad symbols in the length-bucketed batches of scans")
+obs.counter("engine.encoded_symbols",
+            help="characters encoded to symbols through a scanner's table")
 obs.counter("speculative.total_chunks",
             help="chunks executed speculatively")
 obs.counter("speculative.hit_chunks",
@@ -187,6 +189,19 @@ def _ladder_rungs(lengths: np.ndarray, n_chunks: int) -> np.ndarray:
         grown = -(-math.ceil(tops[-1] * SCAN_LADDER_RATIO) // n_chunks)
         tops.append(max(grown, tops[-1] // n_chunks + 1) * n_chunks)
     return np.searchsorted(tops, lengths)
+
+
+def _symbol_table(alphabet: str) -> np.ndarray:
+    """``Scanner.encode``'s lookup table: entry ``ord(c)`` holds the symbol
+    of character ``c`` (its last index in ``alphabet``, as a ``{c: i}`` dict
+    built in order keeps it), every other entry -1. The last entry is one
+    past the alphabet's largest code point, so a lookup clipped to the
+    table maps every larger code point to -1 too."""
+    table = np.full(max(map(ord, alphabet), default=-1) + 2, -1,
+                    dtype=np.int32)
+    for i, c in enumerate(alphabet):
+        table[ord(c)] = i
+    return table
 
 
 def _stack_sfas(sfas: Sequence[SFA], n_max: int) -> tuple:
@@ -368,6 +383,7 @@ class Scanner:
         self.construction_report = construction_report or ConstructionReport()
         self.alphabet = dfas[0].alphabet
         self.n_symbols = dfas[0].n_symbols
+        self._symbol_table = _symbol_table(self.alphabet)
         self.n_patterns = len(dfas)
         self.n_max = max(d.n_states for d in dfas)
         self._dfas = dfas
@@ -475,21 +491,45 @@ class Scanner:
     # -- encoding helpers ---------------------------------------------------
 
     def encode(self, text: str) -> np.ndarray:
-        sym = {c: i for i, c in enumerate(self.alphabet)}
-        return np.asarray([sym[c] for c in text], dtype=np.int32)
+        """A string -> its (len(text),) int32 symbols, by one lookup of the
+        scanner's symbol table (:func:`_symbol_table`) over the text's code
+        points. A character outside the alphabet raises ``KeyError`` for
+        the first such character, as a dict lookup would."""
+        codes = np.frombuffer(text.encode("utf-32-le", "surrogatepass"),
+                              dtype="<u4")
+        symbols = self._symbol_table.take(codes, mode="clip")
+        if symbols.size and symbols.min() < 0:
+            raise KeyError(text[int(np.argmax(symbols < 0))])
+        obs.counter("engine.encoded_symbols").inc(symbols.size)
+        return symbols
 
     def _encoded(self, docs) -> list:
-        """A str, or a sequence of str and symbol arrays -> int32 arrays."""
+        """A str, or a sequence of str and symbol arrays -> int32 arrays.
+        The strings are encoded together, as one joined text, and each
+        comes back as a view of that one array."""
         if isinstance(docs, str):
             docs = [docs]
-        return [self.encode(d) if isinstance(d, str)
-                else np.asarray(d, dtype=np.int32) for d in docs]
+        flat = self.encode("".join(d for d in docs if isinstance(d, str)))
+        out, at = [], 0
+        for d in docs:
+            if isinstance(d, str):
+                out.append(flat[at:at + len(d)])
+                at += len(d)
+            else:
+                out.append(np.asarray(d, dtype=np.int32))
+        return out
 
-    def _check_symbols(self, corpus: np.ndarray) -> None:
-        if corpus.size and (corpus.min() < 0
-                            or corpus.max() >= self.n_symbols):
-            raise ValueError(
-                f"document symbols must lie in [0, {self.n_symbols})")
+    def _check_symbols(self, corpus: np.ndarray, pads: int = 0) -> None:
+        """Every symbol of ``corpus`` in ``[0, n_symbols)``, but for its
+        ``pads`` entries of the pad symbol ``n_symbols`` (a ladder batch's
+        padding): a doc that holds the pad symbol itself is refused."""
+        k = self.n_symbols
+        if not corpus.size:
+            return
+        top = int(corpus.max())
+        if corpus.min() < 0 or top > k or (
+                top == k and np.count_nonzero(corpus == k) != pads):
+            raise ValueError(f"document symbols must lie in [0, {k})")
 
     def _length_batches(self, docs) -> list:
         """Docs -> [(doc indices, (Dg, L) int32 corpus)], one batch per doc
@@ -533,10 +573,10 @@ class Scanner:
             idxs = np.flatnonzero(rungs == r)
             L = lens[idxs]
             W = -(-int(L.max()) // n_chunks) * n_chunks
-            symbols = np.concatenate([enc[d] for d in idxs])
-            self._check_symbols(symbols)
             corpus = np.full((len(idxs), W), self.n_symbols, dtype=np.int32)
-            corpus[np.arange(W) < L[:, None]] = symbols
+            for row, d in zip(corpus, idxs.tolist()):
+                row[:len(enc[d])] = enc[d]
+            self._check_symbols(corpus, corpus.size - int(L.sum()))
             batches.append((idxs, corpus, L))
         return batches
 

@@ -405,3 +405,153 @@ def test_one_sequence_paths_keep_exact_lengths(mode):
     for window, stride in ((48, 8), (40, 40), (37, 37)):
         assert np.array_equal(port.census_windows(seq, window, stride).hits,
                               ref.census_windows(seq, window, stride).hits)
+
+
+# --------------------------------------------------------------------------
+# Encoding: a request's strings joined and looked up in the scanner's symbol
+# table at once, over their code points
+# --------------------------------------------------------------------------
+
+AMINO = "ACDEFGHIKLMNPQRSTVWY"
+
+
+def _dict_encode(alphabet, text):
+    """The per-character dict lookup the table stands in for."""
+    sym = {c: i for i, c in enumerate(alphabet)}
+    return np.asarray([sym[c] for c in text], dtype=np.int32)
+
+
+def _text(alphabet, rng, length):
+    return "".join(np.asarray(list(alphabet))[rng.integers(
+        0, len(alphabet), length)])
+
+
+def _as_text(scanner, symbols):
+    return "".join(scanner.alphabet[s] for s in symbols)
+
+
+@pytest.mark.parametrize("length", [0, 1, 2, 19, 20, 333, 1024, 2000])
+def test_encode_equals_dict_and_reference(scanners, length):
+    port, ref = scanners
+    assert port.alphabet == AMINO
+    text = _text(AMINO, np.random.default_rng(length), length)
+    got = port.encode(text)
+    assert got.dtype == np.int32 and got.shape == (length,)
+    assert np.array_equal(got, _dict_encode(AMINO, text))
+    assert np.array_equal(got, np.asarray(ref.encode(text)))
+
+
+def test_encoded_str_and_array_docs_equal_each_alone(scanners):
+    """Strings of lengths 0-2,000, the empty string and one character mixed
+    with int32 arrays: each string's symbols are its own encode's and the
+    reference's, each array passes through as int32."""
+    port, ref = scanners
+    rng = np.random.default_rng(31)
+    strs = [_text(AMINO, rng, L) for L in rng.integers(0, 2001, 40)]
+    arrs = [rng.integers(0, 20, L).astype(np.int64) for L in (0, 5, 77)]
+    docs = (["", "W"] + strs[:10] + [arrs[0]] + strs[10:30] + arrs[1:]
+            + strs[30:] + [""])
+    enc = port._encoded(docs)
+    assert len(enc) == len(docs)
+    for d, e, want in zip(docs, enc, ref._encode_docs(docs)):
+        assert e.dtype == np.int32
+        assert np.array_equal(e, np.asarray(want))
+        assert np.array_equal(e, port.encode(d) if isinstance(d, str) else d)
+    assert [len(e) for e in port._encoded("MKV")] == [3]
+
+
+@pytest.mark.parametrize("which", ["ladder", "proteins"])
+def test_ladder_batches_of_strings_equal_those_of_arrays(scanners, which):
+    """The ladder's batches of a list of strings are those of the same docs
+    handed pre-encoded as int32 arrays: rows, widths, pad and lengths."""
+    if which == "ladder":
+        port = _ladder_scanner("sfa")
+        ints = _ladder_docs(7)
+    else:
+        port = scanners[0]
+        rng = np.random.default_rng(2531)
+        lengths = np.clip(rng.lognormal(5.70, 0.60, 256).astype(int), 2, None)
+        ints = [rng.integers(0, 20, L).astype(np.int32) for L in lengths]
+    strs = [_as_text(port, d) for d in ints]
+    got, want = port._ladder_batches(strs), port._ladder_batches(ints)
+    assert len(got) == len(want) >= 3
+    for (gi, gc, gl), (wi, wc, wl) in zip(got, want):
+        assert np.array_equal(gi, wi) and np.array_equal(gl, wl)
+        assert gc.dtype == wc.dtype == np.int32
+        assert gc.shape == wc.shape and np.array_equal(gc, wc)
+        assert gc.shape[1] % port.plan.chunking.n_chunks == 0
+        for row, d in zip(gc, gi):
+            assert np.array_equal(row[:len(ints[d])], ints[d])
+            assert (row[len(ints[d]):] == port.n_symbols).all()
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration", "speculative",
+                                  "mixed"])
+def test_scan_of_str_and_array_docs_equals_reference_backend(mode):
+    port = _ladder_scanner(mode)
+    ref = _ladder_scanner(mode, backend="reference")
+    ints = _ladder_docs(3)
+    docs = [_as_text(port, d) if i % 2 else d for i, d in enumerate(ints)]
+    got = port.scan(docs)
+    assert np.array_equal(got.hits, ref.scan(docs).hits)
+    assert np.array_equal(got.hits, port.scan(ints).hits)
+    assert got.hits.any() and not got.hits.all()
+
+
+def _bad_docs(case):
+    """Docs holding a character outside the amino-acid alphabet, and the
+    first such character."""
+    rng = np.random.default_rng(17)
+    docs = [_text(AMINO, rng, 60) for _ in range(250)]
+    if case == "200th_string":
+        docs[199] = docs[199][:20] + "B" + docs[199][20:] + "Z"
+        docs[230] = "X" + docs[230]
+        return docs, "B"
+    bad = {"lowercase": "k", "X": "X", "non_ascii": "é",
+           "astral": "\U0001d538"}[case]
+    return [docs[0][:31] + bad + docs[0][31:] + "x"], bad
+
+
+@pytest.mark.parametrize("case", ["lowercase", "X", "non_ascii", "astral",
+                                  "200th_string"])
+def test_unknown_character_raises_the_references_key_error(scanners, case):
+    port, ref = scanners
+    docs, first = _bad_docs(case)
+    for call in (lambda s: s.scan(docs), lambda s: s.encode("".join(docs)),
+                 lambda s: s.mapping(docs[-1] if len(docs) == 1 else
+                                     docs[199])):
+        with pytest.raises(KeyError) as mine:
+            call(port)
+        with pytest.raises(KeyError) as theirs:
+            call(ref)
+        assert mine.value.args == theirs.value.args == (first,)
+
+
+@pytest.mark.parametrize("source", ["regex", "random"])
+def test_non_ascii_alphabet_encodes_as_the_dict_does(source):
+    """An alphabet of characters past ASCII (one beyond the basic plane):
+    the table gives the dict's symbols, and its KeyError for a character
+    outside it, and scans of strings equal those of the symbols."""
+    from repro_torch.core.dfa import compile_dfa
+
+    if source == "regex":
+        alphabet = "aαβγЖ\U0001d538"
+        dfa = compile_dfa("βγ", alphabet)
+    else:
+        dfa = random_dfa(6, 40, seed=3)
+        alphabet = dfa.alphabet
+        assert max(map(ord, alphabet)) > 127
+    assert dfa.alphabet == alphabet
+    port = Scanner.compile([dfa], device="cpu",
+                           chunking=ChunkPolicy(n_chunks=N_CHUNKS))
+    rng = np.random.default_rng(8)
+    strs = [_text(alphabet, rng, L) for L in (0, 1, 7, 40, 333)]
+    for s in strs:
+        assert np.array_equal(port.encode(s), _dict_encode(alphabet, s))
+        assert np.array_equal(port.encode(s), dfa.encode(s))
+    ints = [_dict_encode(alphabet, s) for s in strs]
+    assert np.array_equal(port.scan(strs).hits, port.scan(ints).hits)
+    for bad in ("Z", "δ", "\U0001d539", "\ud800"):
+        with pytest.raises(KeyError) as e:
+            port.encode(strs[3] + bad + alphabet)
+        assert e.value.args == (bad,)

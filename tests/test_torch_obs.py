@@ -604,6 +604,38 @@ def test_scan_spans_one_a_batch_and_group():
     assert hits.shape == (3, 6)
 
 
+def test_encoded_symbols_count_the_characters_encoded(docs):
+    """``engine.encoded_symbols`` moves by the characters that go through
+    the scanner's symbol table: a scan's ``str`` docs, ``encode`` and a
+    stream's ``str`` pieces; int32 arrays add nothing."""
+    sc = Scanner.compile(PATTERNS, _plan(SFACache()))
+
+    def moved(fn):
+        before = obs.snapshot("engine")
+        fn()
+        d = snapshot_delta(before, obs.snapshot("engine"))
+        return (d.get("engine.encoded_symbols", 0),
+                d.get("engine.scan_symbols", 0))
+
+    arr = sc.encode(docs[0])
+    mixed = [docs[0], arr, "", docs[1], arr[:7]]
+    strs = len(docs[0]) + len(docs[1])
+    assert moved(lambda: sc.scan(mixed)) == (strs, strs + len(arr) + 7)
+    assert moved(lambda: sc.scan(docs)) == (sum(map(len, docs)),) * 2
+    assert moved(lambda: sc.scan(np.stack([arr, arr]))) == (0, 2 * len(arr))
+    assert moved(lambda: sc.scan([arr])) == (0, len(arr))
+    assert moved(lambda: sc.encode(docs[2])) == (len(docs[2]), 0)
+
+    def streamed():
+        s = sc.open_stream()
+        s.feed(docs[3])
+        s.feed(arr)
+        s.feed(docs[1][:5])
+        s.finish()
+
+    assert moved(streamed)[0] == len(docs[3]) + 5
+
+
 CENSUS_LOOPS = ("fold", "windows", "readback")
 
 
@@ -812,6 +844,7 @@ def test_instrumentation_matches_reference_on_bundled_bank():
     # The scan's symbol counters have no twin in the reference.
     assert mine.pop("engine.scan_symbols") == sum(map(len, docs))
     assert mine.pop("engine.scan_pad_symbols") == 0   # 96 = 24 x n_chunks
+    assert mine.pop("engine.encoded_symbols") == sum(map(len, docs))
     assert mine == theirs
     assert my_spans == their_spans | NEW_SPANS
     assert my_totalled == my_spans | LOOP_SPANS
