@@ -531,46 +531,30 @@ class Scanner:
                 top == k and np.count_nonzero(corpus == k) != pads):
             raise ValueError(f"document symbols must lie in [0, {k})")
 
-    def _length_batches(self, docs) -> list:
-        """Docs -> [(doc indices, (Dg, L) int32 corpus)], one batch per doc
-        length (a 2-D array is one batch as it stands)."""
-        if isinstance(docs, np.ndarray) and docs.ndim == 2:
-            batches = [(np.arange(docs.shape[0]), docs.astype(np.int32,
-                                                              copy=False))]
-        else:
-            enc = self._encoded(docs)
-            by_len: dict = {}
-            for d, e in enumerate(enc):
-                by_len.setdefault(len(e), []).append(d)
-            batches = []
-            for L, idxs in sorted(by_len.items()):
-                corpus = (np.stack([enc[d] for d in idxs]) if L else
-                          np.zeros((len(idxs), 0), dtype=np.int32))
-                batches.append((np.asarray(idxs), corpus))
-        for _, corpus in batches:
-            self._check_symbols(corpus)
-        return batches
-
-    def _ladder_batches(self, docs) -> list:
-        """``scan``'s batches of a list of docs -> [(doc indices, (Dg, W)
-        int32 corpus, (Dg,) lengths)], one for each occupied rung of the
-        length ladder (:func:`_ladder_rungs`), rows in doc order. ``W`` is
-        the rung's longest doc rounded up to ``n_chunks``; beyond each doc's
-        end its row holds the pad symbol ``n_symbols``, which the group's
-        ``walk_*`` tables map to the identity, so no batch has a ragged
-        tail. A 2-D array is one batch as it stands (lengths ``None``), for
-        ``scan`` to pad on the device."""
+    def _batches(self, docs) -> list:
+        """Docs -> [(doc indices, (Dg, W) int32 corpus, (Dg,) lengths)],
+        rows in doc order. A list of docs is grouped by the length ladder
+        (:func:`_ladder_rungs`), or by doc length on the two paths that keep
+        the reference's batches: the ``reference`` backend, the oracle the
+        ladder is held to, and the mesh, whose doc-count check the reference
+        makes a length at a time. ``W`` is a batch's longest doc rounded up
+        to ``n_chunks``; beyond each doc's end its row holds the pad symbol
+        ``n_symbols``, which the group's ``walk_*`` tables map to the
+        identity, so no batch has a ragged tail. A 2-D array is one batch as
+        it stands, for :meth:`_on_device` to pad on the device."""
         if isinstance(docs, np.ndarray) and docs.ndim == 2:
             corpus = docs.astype(np.int32, copy=False)
             self._check_symbols(corpus)
-            return [(np.arange(corpus.shape[0]), corpus, None)]
+            D, L = corpus.shape
+            return [(np.arange(D), corpus, np.full(D, L, dtype=np.int64))]
         enc = self._encoded(docs)
         lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
         n_chunks = self.plan.chunking.n_chunks
-        rungs = _ladder_rungs(lens, n_chunks)
+        by_length = self.mesh is not None or self.plan.backend == "reference"
+        keys = lens if by_length else _ladder_rungs(lens, n_chunks)
         batches = []
-        for r in np.unique(rungs):
-            idxs = np.flatnonzero(rungs == r)
+        for key in np.unique(keys):
+            idxs = np.flatnonzero(keys == key)
             L = lens[idxs]
             W = -(-int(L.max()) // n_chunks) * n_chunks
             corpus = np.full((len(idxs), W), self.n_symbols, dtype=np.int32)
@@ -582,43 +566,62 @@ class Scanner:
 
     @staticmethod
     def _group_parts(g: PatternGroup, idxs, corpus: np.ndarray,
-                     lengths) -> list:
-        """What a group walks of a batch: [(doc indices, corpus)], the batch
-        itself, or a speculative group's ladder batch a length at a time,
-        ascending (its chunk statistics are the reference's only at the
-        docs' own lengths)."""
-        if g.mode != "speculative" or lengths is None:
-            return [(idxs, corpus)]
+                     lengths: np.ndarray) -> list:
+        """What a group walks of a batch: [(doc indices, corpus, the docs'
+        longest length)], the batch itself, or a speculative group's batch a
+        length at a time, ascending, each part cut to its docs' own length
+        (its chunk statistics are the reference's only there)."""
+        if g.mode != "speculative":
+            return [(idxs, corpus, int(lengths.max(initial=0)))]
         return [(idxs[lengths == L],
-                 np.ascontiguousarray(corpus[lengths == L, :L]))
+                 np.ascontiguousarray(corpus[lengths == L, :L]), int(L))
                 for L in np.unique(lengths)]
+
+    def _on_device(self, corpus: np.ndarray) -> torch.Tensor:
+        """A batch on the device, its rows padded there with the pad symbol
+        to a multiple of ``n_chunks`` columns."""
+        corpus_t = torch.as_tensor(corpus, device=self.device)
+        pad = -corpus.shape[1] % self.plan.chunking.n_chunks
+        if pad:
+            corpus_t = torch.nn.functional.pad(corpus_t, (0, pad),
+                                               value=self.n_symbols)
+        return corpus_t
 
     # -- the chunk-function core -------------------------------------------
 
     def _group_doc_mappings(self, g: PatternGroup, corpus: np.ndarray,
-                            corpus_t: torch.Tensor) -> torch.Tensor:
-        """Final mapping of every (pattern-in-group, doc): -> (Pg, D, n) on
-        the scanner's device. ``corpus_t`` is ``corpus`` already on the
-        device (copied once per scan batch, shared by the groups), where a
-        ladder batch may hold pad symbols. The kernel handles the head (the
-        largest prefix divisible by ``n_chunks``); a ragged tail, which no
-        ladder batch has, is composed symbol by symbol."""
+                            corpus_t: torch.Tensor, length: int,
+                            local: bool = False) -> torch.Tensor:
+        """Final mapping of every (pattern-in-group, doc) of a batch: ->
+        (Pg, D, n) on the scanner's device. The one place that chooses how
+        a group walks.
+
+        ``corpus`` is the batch on the host, ``corpus_t`` on the device
+        padded with the pad symbol to a multiple of ``n_chunks`` columns, and
+        ``length`` the docs' own length (the longest, in a ladder batch).
+        Docs of no symbols map to the identity. The mesh walks the batch
+        unless ``local`` (the stream's blocks) or the docs are shorter than
+        ``n_chunks``: the reference walks no head there, so it neither
+        raises nor gathers. The ``reference`` backend composes the docs at
+        their own length on the host. A speculative group walks by
+        enumeration: a whole mapping needs every state."""
         n_chunks = self.plan.chunking.n_chunks
-        D, L = corpus_t.shape
-        head_len = L - (L % n_chunks)
-        Pg, n = len(g.indices), g.n
-        if head_len:
-            maps = self._head_mappings(g, corpus, corpus_t[:, :head_len],
-                                       n_chunks)
-        else:
-            maps = torch.arange(n, dtype=torch.int32, device=self.device
+        Pg, D, n = len(g.indices), corpus.shape[0], g.n
+        if not length:
+            return torch.arange(n, dtype=torch.int32, device=self.device
                                 ).expand(Pg, D, n)
-        if head_len < L:
-            # Each (doc, state) lane is a state walking its doc's tail.
-            tail = corpus_t[:, head_len:].repeat_interleave(n, dim=0)
-            maps = X.advance_states_sequential(
-                g.walk_tables, maps.reshape(Pg, D * n), tail).view(Pg, D, n)
-        return maps
+        if self.mesh is not None and not local and length >= n_chunks:
+            self._check_mesh_docs(D)
+            if g.mode == "sfa":
+                return g._dist_fn(g.walk_deltas, g.sfa_maps, corpus_t)
+            return g._dist_fn(g.walk_tables, corpus_t)
+        if self.plan.backend == "reference":
+            return torch.as_tensor(_reference_doc_mappings(
+                g.bank.tables, corpus[:, :length]), device=self.device)
+        if g.mode == "sfa":
+            return X.bank_doc_mappings_sfa(g.walk_deltas, g.sfa_maps,
+                                           corpus_t, n_chunks)
+        return X.bank_doc_mappings(g.walk_tables, corpus_t, n_chunks)
 
     def _check_mesh_docs(self, D: int) -> None:
         """The reference's check, before any collective, on every rank."""
@@ -627,22 +630,6 @@ class Scanner:
             raise ValueError(
                 f"shard_map distribution needs doc count ({D}) divisible "
                 f"by the mesh's {self.plan.data_axis} size ({n_dev})")
-
-    def _head_mappings(self, g: PatternGroup, corpus: np.ndarray,
-                       head: torch.Tensor, n_chunks: int) -> torch.Tensor:
-        if self.mesh is not None:
-            self._check_mesh_docs(head.shape[0])
-            if g.mode == "sfa":
-                return g._dist_fn(g.walk_deltas, g.sfa_maps, head)
-            return g._dist_fn(g.walk_tables, head)
-        if self.plan.backend == "reference":
-            maps = _reference_doc_mappings(
-                g.bank.tables, corpus[:, : head.shape[1]])
-            return torch.as_tensor(maps, device=self.device)
-        if g.mode == "sfa":
-            return X.bank_doc_mappings_sfa(g.walk_deltas, g.sfa_maps, head,
-                                           n_chunks)
-        return X.bank_doc_mappings(g.walk_tables, head, n_chunks)
 
     # -- the speculative core ----------------------------------------------
 
@@ -774,6 +761,9 @@ class Scanner:
             else:
                 finals = starts[:, None].expand(Pg, D)
             if head_len < L:
+                # A speculative group walks its docs at their own length, so
+                # that its SpeculationStats count the reference's chunks;
+                # the tail beyond them goes symbol by symbol.
                 finals = X.advance_states_sequential(
                     g.walk_tables, finals, corpus_t[:, head_len:])
         obs.counter("speculative.total_chunks").inc(stats.total_chunks)
@@ -790,14 +780,12 @@ class Scanner:
     def scan(self, docs) -> ScanResult:
         """Match a corpus against the bank -> :class:`ScanResult` (P, D).
 
-        A list of docs is batched by the length ladder
-        (:meth:`_ladder_batches`): docs of neighbouring lengths share one
-        batch, padded with the neutral pad symbol to a multiple of
-        ``n_chunks``; a 2-D array is one batch, padded so on the device. The
-        ``reference`` backend (host tables of ``n_symbols`` columns) and the
-        mesh path (a batch's doc count must divide the mesh) keep one batch
-        a doc length (:meth:`_length_batches`), and a speculative group
-        walks a ladder batch a length at a time (:meth:`_group_parts`).
+        Docs go to the device in batches (:meth:`_batches`): a list of docs
+        by the length ladder (by doc length on the ``reference`` backend and
+        the mesh), each batch padded with the neutral pad symbol to a
+        multiple of ``n_chunks``; a 2-D array is one batch, padded so on the
+        device. A speculative group walks a batch a length at a time
+        (:meth:`_group_parts`).
 
         Spans: ``scanner.scan.prepare`` once (encoding, batching, the
         symbol check), then, as loop spans, for each batch and group (and
@@ -807,21 +795,13 @@ class Scanner:
         device, then copies) and ``scanner.scan.scatter`` (the group's hits
         into the (P, D) matrix). Counters: ``engine.scan_symbols`` (the
         docs' symbols) and ``engine.scan_pad_symbols`` (the pad symbols of
-        the batches some group walks whole, i.e. of a bank not speculative
+        the batches some group takes whole, i.e. of a bank not speculative
         alone)."""
         spec_stats: SpeculationStats | None = None
-        n_chunks = self.plan.chunking.n_chunks
-        exact = self.mesh is not None or self.plan.backend == "reference"
-        padded = not exact and any(g.mode != "speculative"
-                                   for g in self.groups)
         with obs.span("scanner.scan", patterns=self.n_patterns) as span:
             self.last_trace_id = obs.current_trace_id() or self.last_trace_id
             with obs.span("scanner.scan.prepare"):
-                if exact:
-                    batches = [(idxs, corpus, None) for idxs, corpus
-                               in self._length_batches(docs)]
-                else:
-                    batches = self._ladder_batches(docs)
+                batches = self._batches(docs)
                 D = sum(len(idxs) for idxs, _, _ in batches)
                 hits = np.zeros((self.n_patterns, D), dtype=bool)
             if span is not None:
@@ -831,24 +811,23 @@ class Scanner:
             scatter = obs.loop_span("scanner.scan.scatter")
             symbols = pads = 0
             for idxs, corpus, lengths in batches:
-                L = corpus.shape[1]
-                W = -(-L // n_chunks) * n_chunks if padded else L
-                real = corpus.size if lengths is None else int(lengths.sum())
+                real = int(lengths.sum())
                 symbols += real
-                pads += len(idxs) * W - real if padded else 0
                 corpus_t = None
                 for g in self.groups:
-                    for part_idxs, part in self._group_parts(g, idxs, corpus,
-                                                             lengths):
+                    for part_idxs, part, length in self._group_parts(
+                            g, idxs, corpus, lengths):
                         with launch:
                             if part is not corpus:
                                 part_t = torch.as_tensor(part,
                                                          device=self.device)
                             else:
                                 if corpus_t is None:
-                                    corpus_t = self._on_device(corpus, W)
+                                    corpus_t = self._on_device(corpus)
+                                    pads += corpus_t.numel() - real
                                 part_t = corpus_t
-                            acc, st = self._group_hits(g, part, part_t)
+                            acc, st = self._group_hits(g, part, part_t,
+                                                       length)
                             if st is not None:
                                 spec_stats = st if spec_stats is None \
                                     else spec_stats.merged(st)
@@ -863,26 +842,15 @@ class Scanner:
         self.last_speculation = spec_stats
         return ScanResult(hits=hits, ids=self.ids, speculation=spec_stats)
 
-    def _on_device(self, corpus: np.ndarray, width: int) -> torch.Tensor:
-        """A batch on the device, its rows padded with the pad symbol to
-        ``width`` columns there."""
-        corpus_t = torch.as_tensor(corpus, device=self.device)
-        if width > corpus.shape[1]:
-            corpus_t = torch.nn.functional.pad(
-                corpus_t, (0, width - corpus.shape[1]), value=self.n_symbols)
-        return corpus_t
-
     def _group_hits(self, g: PatternGroup, corpus: np.ndarray,
-                    corpus_t: torch.Tensor) -> tuple:
+                    corpus_t: torch.Tensor, length: int) -> tuple:
         """One batch under one group -> ((Pg, D) accept flags on the
         device, the group's SpeculationStats or None). A speculative group
-        walks the docs' own symbols, the first ``corpus.shape[1]`` columns
-        of ``corpus_t``."""
-        if g.mode == "speculative" and corpus.shape[1]:
-            finals, st = self._group_doc_finals(
-                g, corpus, corpus_t[:, :corpus.shape[1]])
+        is handed its docs at their own length."""
+        if g.mode == "speculative" and length:
+            finals, st = self._group_doc_finals(g, corpus, corpus_t)
             return g.accepting.gather(1, finals.to(torch.int64)), st
-        maps = self._group_doc_mappings(g, corpus, corpus_t)
+        maps = self._group_doc_mappings(g, corpus, corpus_t, length)
         return X.hits_of_mappings(maps, g.accepting, g.starts), None
 
     def census(self, docs) -> np.ndarray:
@@ -895,14 +863,17 @@ class Scanner:
         each pattern's true state count). Speculative groups compute it
         through the enumeration executor: a whole transition function needs
         all n states, so there is nothing for speculation to skip."""
-        (_, corpus), = self._length_batches([doc])
-        corpus_t = torch.as_tensor(corpus, device=self.device)
+        enc = self._encoded([doc])[0]
+        self._check_symbols(enc)
+        corpus = enc[None]
+        corpus_t = self._on_device(corpus)
         out = np.broadcast_to(
             np.arange(self.n_max, dtype=np.int32),
             (self.n_patterns, self.n_max),
         ).copy()
         for g in self.groups:
-            maps = self._group_doc_mappings(g, corpus, corpus_t)[:, 0, :]
+            maps = self._group_doc_mappings(g, corpus, corpus_t,
+                                            len(enc))[:, 0, :]
             out[g.indices, : g.n] = maps.cpu().numpy()
         return out
 
@@ -948,8 +919,8 @@ class Scanner:
                       window=window, stride=stride) as span:
             self.last_trace_id = obs.current_trace_id() or self.last_trace_id
             with obs.span("scanner.census.prepare"):
-                (_, enc), = self._length_batches([seq])
-                enc = enc[0]
+                enc = self._encoded([seq])[0]
+                self._check_symbols(enc)
                 L = len(enc)
                 m = window // stride
                 W = (L - window) // stride + 1 if L >= window else 0
@@ -959,8 +930,7 @@ class Scanner:
                 if W == 0:
                     return ScanResult(hits=hits, ids=self.ids)
                 B = W + m - 1
-                blocks = np.ascontiguousarray(
-                    enc[: B * stride].reshape(B, stride))
+                blocks = enc[: B * stride].reshape(B, stride)
                 if self.mesh is not None:
                     # Blocks are the "docs" of the mesh path: pad the block
                     # axis to a multiple of the mesh size with zero rows,
@@ -968,13 +938,14 @@ class Scanner:
                     pad_rows = -B % mesh_size(self.mesh)
                     blocks = np.concatenate(
                         [blocks, np.zeros((pad_rows, stride), dtype=np.int32)])
-                blocks_t = torch.as_tensor(blocks, device=self.device)
+                blocks_t = self._on_device(blocks)
             fold = obs.loop_span("scanner.census.fold")
             windows = obs.loop_span("scanner.census.windows")
             readback = obs.loop_span("scanner.census.readback")
             for g in self.groups:
                 with fold:
-                    maps = self._group_doc_mappings(g, blocks, blocks_t)[:, :B]
+                    maps = self._group_doc_mappings(g, blocks, blocks_t,
+                                                    stride)[:, :B]
                 with windows:
                     wmaps = X.sliding_window_mappings(maps, m)    # (Pg, W, n)
                     acc = X.hits_of_mappings(wmaps, g.accepting, g.starts)
@@ -997,8 +968,8 @@ class Scanner:
             p = (self.ids.index(pattern) if isinstance(pattern, str)
                  else int(pattern))
         d = self._dfas[p]
-        (_, enc), = self._length_batches([doc])
-        enc = enc[0]
+        enc = self._encoded([doc])[0]
+        self._check_symbols(enc)
         n_chunks = self.plan.chunking.n_chunks
         head_len = len(enc) - (len(enc) % n_chunks)
         flags = np.zeros(len(enc), dtype=bool)

@@ -12,9 +12,11 @@ launch per piece and group folds the prefix and all the piece's blocks (the
 SFA path's chunk fold is one more). Memory holds one piece plus the
 ``(P, n)`` prefix, whatever the input's length.
 
-``StreamSession.finish()`` composes the ragged tail symbol by symbol and
-returns a :class:`StreamResult` whose mapping is bit-identical to
-``Scanner.mapping`` of the concatenated input.
+``StreamSession.finish()`` walks the ragged tail as one block padded with
+the pad symbol, folds it in, and returns a :class:`StreamResult` whose
+mapping is bit-identical to ``Scanner.mapping`` of the concatenated input.
+Every block is walked where the scanner's other non-speculative walks are
+(``Scanner._group_doc_mappings``), locally, as in the reference.
 
 Speculative groups carry exact running *states* instead of whole functions:
 each block is one document whose start states are the stream's current
@@ -137,18 +139,8 @@ class StreamSession:
             if g.mode == "speculative":
                 self._advance_speculative(gi, g, blocks, blocks_t)
                 continue
-            if sc.plan.backend == "reference":
-                from .scanner import _reference_doc_mappings
-
-                bm = torch.as_tensor(
-                    _reference_doc_mappings(g.bank.tables, blocks),
-                    device=sc.device)
-            elif g.mode == "sfa":
-                bm = X.bank_doc_mappings_sfa(g.walk_deltas, g.sfa_maps,
-                                             blocks_t, self.n_chunks)
-            else:
-                bm = X.bank_doc_mappings(g.walk_tables, blocks_t,
-                                         self.n_chunks)
+            bm = sc._group_doc_mappings(g, blocks, blocks_t, self.super_len,
+                                        local=True)
             # Apply the prefix first, then the blocks in order: one fold.
             self._prefix[gi] = X.FN.fold(self._prefix[gi], bm)
 
@@ -189,18 +181,21 @@ class StreamSession:
             raise RuntimeError("stream already finished")
         self._finished = True
         sc = self.scanner
-        if len(self._buf):
-            tail = torch.as_tensor(self._buf, device=sc.device)
+        T = len(self._buf)
+        if T:
+            tail = self._buf[None]
+            tail_t = sc._on_device(tail)
             for gi, g in enumerate(sc.groups):
                 if g.mode == "speculative":
+                    # The tail goes symbol by symbol at its own length: the
+                    # stream's SpeculationStats count the full blocks'
+                    # chunks, as the reference's do.
                     self._state[gi] = X.advance_states_sequential(
                         g.walk_tables, self._state[gi][:, None],
-                        tail[None])[:, 0]
+                        tail_t[:, :T])[:, 0]
                     continue
-                # Each of the n prefix entries is a state walking the tail.
-                n = self._prefix[gi].shape[1]
-                self._prefix[gi] = X.advance_states_sequential(
-                    g.walk_tables, self._prefix[gi], tail.expand(n, len(tail)))
+                bm = sc._group_doc_mappings(g, tail, tail_t, T, local=True)
+                self._prefix[gi] = X.FN.fold(self._prefix[gi], bm)
             self._buf = np.zeros(0, dtype=np.int32)
 
         mapping = None if self._has_spec else np.broadcast_to(

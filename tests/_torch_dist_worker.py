@@ -287,7 +287,9 @@ def case_shard_monoid(meshes):
 
 def case_odd_doc_count():
     """The reference's ValueError of scan, mapping and accepts on a doc
-    count the mesh does not divide; locate and stream run locally."""
+    count the mesh does not divide; locate and stream run locally, and so
+    does the mapping of a doc shorter than n_chunks, which raises
+    nothing."""
     from repro_torch.core.dfa import random_dfa
     from repro_torch.engine import ChunkPolicy, Scanner
 
@@ -307,7 +309,8 @@ def case_odd_doc_count():
     flat = docs.reshape(-1)
     streamed = sc.stream([flat[:100], flat[100:]])
     return dict(errors=errors, locate=sc.locate(flat, 2),
-                stream=(streamed.mapping, streamed.accepted))
+                stream=(streamed.mapping, streamed.accepted),
+                short=sc.mapping(docs[0][:3]))
 
 
 CASES = ("scan_sfa", "scan_enumeration", "scan_speculative", "construct_p4",

@@ -35,6 +35,7 @@ from repro.engine import Scanner as JScanner  # noqa: E402
 from repro.engine import executors as JX  # noqa: E402
 from repro.scanservice import CorpusJob as JCorpusJob  # noqa: E402
 from repro.scanservice import CorpusManifest as JCorpusManifest  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.construction import SFACache, construct_bank  # noqa: E402
 from repro_torch.core import monoid as M  # noqa: E402
 from repro_torch.core.dfa import example_fa, random_dfa  # noqa: E402
@@ -176,6 +177,39 @@ def test_shard_map_distribution_matches_local(mesh1):
     assert np.array_equal(a.mapping, b.mapping)
     assert np.array_equal(a.accepted, b.accepted)
     assert "shard_map" in dist.describe()
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration"])
+def test_mesh_scan_of_ragged_docs_walks_no_ragged_tail(mesh1, mode,
+                                                       monkeypatch):
+    """A list of docs of lengths 0-50 on the mesh: one batch a length, each
+    padded with the pad symbol to a multiple of n_chunks, so nothing walks
+    symbol by symbol. A batch shorter than n_chunks walks locally; the hits
+    and mappings are the JAX package's under its one-device mesh."""
+    def no_sequential_walk(*args):
+        raise AssertionError("a mesh walk went symbol by symbol")
+
+    monkeypatch.setattr(X, "advance_states_sequential", no_sequential_walk)
+    k = 6
+    dfas = [random_dfa(n, k, seed=80 + n) for n in (3, 5, 4)]
+    jdfas = [jrandom_dfa(n, k, seed=80 + n) for n in (3, 5, 4)]
+    rng = np.random.default_rng(12)
+    lengths = [0, 1, 3, 8, 13, 13, 37, 50]
+    docs = [rng.integers(0, k, L).astype(np.int32) for L in lengths]
+    port = Scanner.compile(dfas, ScanPlan(
+        mode=mode, sfa_state_budget=10_000, device=CPU,
+        distribution="shard_map", mesh=mesh1))
+    ref = JScanner.compile(jdfas, JScanPlan(
+        mode=mode, sfa_state_budget=10_000, distribution="shard_map",
+        mesh=jmake_mesh((1,), ("data",))))
+    before = obs.snapshot()
+    got = port.scan(docs)
+    calls = (obs.snapshot()["kernels.match_bank_chunks.calls"]
+             - before.get("kernels.match_bank_chunks.calls", 0))
+    assert calls == len(port.groups) * len(set(lengths) - {0})
+    assert np.array_equal(got.hits, ref.scan(docs).hits)
+    for doc in docs[1:3] + docs[4:5]:
+        assert np.array_equal(port.mapping(doc), ref.mapping(doc))
 
 
 def test_mesh_none_spans_the_world():

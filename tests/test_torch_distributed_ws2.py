@@ -161,13 +161,15 @@ def test_census_windows_odd_block_count(ranks):
 
 def test_odd_doc_count_raises_the_references_error(ranks):
     """scan of 3 docs, and mapping / accepts of one, raise the reference's
-    ValueError on a 2-rank mesh; locate and stream stay local and equal."""
+    ValueError on a 2-rank mesh; locate and stream stay local and equal, and
+    so does the mapping of a 3-symbol doc, as in the reference, which walks
+    no head below n_chunks."""
     got = _result(ranks, "odd_doc_count")
     msg = ("shard_map distribution needs doc count ({}) divisible by the "
            "mesh's data size (2)")
     assert got["errors"] == [msg.format(3), msg.format(1), msg.format(1)]
     seeds, k, docs = W.scan_inputs()
-    dfas, _ = _dfas(seeds, k)
+    dfas, jdfas = _dfas(seeds, k)
     local = Scanner.compile(dfas, mode="enumeration", device=CPU,
                             chunking=ChunkPolicy(n_chunks=4))
     flat = docs.reshape(-1)
@@ -175,6 +177,10 @@ def test_odd_doc_count_raises_the_references_error(ranks):
     assert np.array_equal(got["locate"], local.locate(flat, 2))
     assert np.array_equal(got["stream"][0], streamed.mapping)
     assert np.array_equal(got["stream"][1], streamed.accepted)
+    jlocal = JScanner.compile(jdfas, JScanPlan(
+        mode="enumeration", chunking=JChunkPolicy(n_chunks=4)))
+    assert np.array_equal(got["short"], local.mapping(docs[0][:3]))
+    assert np.array_equal(got["short"], jlocal.mapping(docs[0][:3]))
 
 
 # --------------------------------------------------------------------------

@@ -391,9 +391,10 @@ def test_ladder_pads_a_2d_array_on_the_device():
 
 @pytest.mark.parametrize("mode", ["sfa", "enumeration", "speculative"])
 def test_one_sequence_paths_keep_exact_lengths(mode):
-    """``mapping``, ``locate`` and ``census_windows`` keep their own
-    exact-length path: the ``reference`` backend's results on the ladder's
-    docs."""
+    """``mapping``, ``locate`` and ``census_windows`` of one sequence, each
+    walked as one batch padded with the pad symbol to a multiple of
+    n_chunks: the ``reference`` backend's results, which compose at the
+    docs' own lengths, on the ladder's docs."""
     port = _ladder_scanner(mode)
     ref = _ladder_scanner(mode, backend="reference")
     docs = _ladder_docs(2)
@@ -405,6 +406,50 @@ def test_one_sequence_paths_keep_exact_lengths(mode):
     for window, stride in ((48, 8), (40, 40), (37, 37)):
         assert np.array_equal(port.census_windows(seq, window, stride).hits,
                               ref.census_windows(seq, window, stride).hits)
+
+
+def _no_sequential_walk(*args, **kwargs):
+    raise AssertionError("a walk outside speculation went symbol by symbol")
+
+
+@pytest.mark.parametrize("mode", ["sfa", "enumeration"])
+def test_one_sequence_paths_walk_no_ragged_tail(mode, monkeypatch):
+    """``mapping`` of docs of 1, 13 and 50 symbols at n_chunks 8,
+    ``census_windows`` at strides 37 and 8, and a stream whose ``finish``
+    has a ragged tail each walk one batch padded with the pad symbol: one
+    ``match_bank_chunks`` walk a group and call, none symbol by symbol, and
+    the JAX package's results."""
+    monkeypatch.setattr(X, "advance_states_sequential", _no_sequential_walk)
+    port, ref = _ladder_scanner(mode), _jax_ladder_scanner(mode)
+    assert port.plan.chunking.n_chunks == 8
+    walks = len(port.groups)
+    rng = np.random.default_rng(41)
+
+    def walked(fn):
+        out, (calls,) = _counted(fn, "kernels.match_bank_chunks.calls")
+        assert calls == walks
+        return out
+
+    for L in (1, 13, 50):
+        doc = rng.integers(0, LADDER_K, L).astype(np.int32)
+        assert np.array_equal(walked(lambda: port.mapping(doc)),
+                              ref.mapping(doc))
+    seq = rng.integers(0, LADDER_K, 400).astype(np.int32)
+    for window, stride in ((37, 37), (48, 8)):
+        got = walked(lambda: port.census_windows(seq, window, stride))
+        assert np.array_equal(got.hits,
+                              ref.census_windows(seq, window, stride).hits)
+    super_len = port.plan.chunking.n_chunks * port.plan.chunking.block_len
+    pieces = [seq[:300], rng.integers(0, LADDER_K, super_len).astype(
+        np.int32), seq[300:313]]
+    sess = port.open_stream()
+    for piece in pieces:
+        sess.feed(piece)
+    assert len(sess._buf) == 313 and 313 % 8
+    got = walked(sess.finish)
+    want = ref.stream(pieces)
+    assert np.array_equal(got.mapping, want.mapping)
+    assert np.array_equal(got.accepted, want.accepted)
 
 
 # --------------------------------------------------------------------------
@@ -473,7 +518,7 @@ def test_ladder_batches_of_strings_equal_those_of_arrays(scanners, which):
         lengths = np.clip(rng.lognormal(5.70, 0.60, 256).astype(int), 2, None)
         ints = [rng.integers(0, 20, L).astype(np.int32) for L in lengths]
     strs = [_as_text(port, d) for d in ints]
-    got, want = port._ladder_batches(strs), port._ladder_batches(ints)
+    got, want = port._batches(strs), port._batches(ints)
     assert len(got) == len(want) >= 3
     for (gi, gc, gl), (wi, wc, wl) in zip(got, want):
         assert np.array_equal(gi, wi) and np.array_equal(gl, wl)
