@@ -11,12 +11,14 @@ Phases, in order (any failure raises and exits non-zero):
    nvcc (one process per source, in parallel) and print the build time;
 2. hold each kernel equal to its plain PyTorch version on the card, on
    random inputs from a numpy seed: at the largest shapes its path gives
-   it and at a ragged edge; the two chunk walks also on tables past their
-   shared-memory budget, each walk's launch plan held to the branch its
-   case names and its share of lookups on staged rows printed; the
-   speculative scan's two launches (the chunk walk from explicit start
-   states, ``spec_resolve`` under a profile that hits every chunk and one
-   that misses every chunk with 2 repairs a lane) at its shape, and the
+   it and at a ragged edge (``compose`` also writing into a slab of a
+   larger buffer, the census's window stitch); the two chunk walks also on
+   tables past their shared-memory budget, each walk's launch plan held to
+   the branch its case names and its share of lookups on staged rows
+   printed; the speculative scan's two launches (the chunk walk from
+   explicit start states, ``spec_resolve`` under a profile that hits every
+   chunk and one that misses every chunk with 2 repairs a lane) at its
+   shape, and the
    chained ``spec_resolve`` of a stream piece (32 blocks of 8 x 256
    symbols: one pattern under a profile that hits and one that misses with
    fallback lanes, 24 patterns under a random profile); count the
@@ -47,7 +49,8 @@ Phases, in order (any failure raises and exits non-zero):
    384, stride 48) and a 64-piece ``stream`` of the same sequence through
    the budget-20000 bank scanner; then read the launch counts and require
    equal results from the host construction, the plain versions, the
-   match oracle, the materialised windows and the whole-sequence mapping;
+   match oracle, the materialised windows (and 7 in-place window combines
+   a group) and the whole-sequence mapping;
 6. speculative scanning, launch counts at 0 before each of its own runs
    and summed after it (the comparison runs and plain-version checks are
    left out): the bundled bank under
@@ -430,6 +433,26 @@ def kernel_cases(torch, ops, ref, dev, clock_mhz: float):
             nbytes=4 * 3 * B * n,
             ops=0,
         ))
+    # compose into a slab: the window scans' stitch (engine/executors.py::
+    # _window_compositions) over the census's tile-position-major
+    # workspaces, m = 8 slabs of R = 23 (T + 1) rows, T = ceil(blocks / 8):
+    # rows i of one buffer then rows i + 1 of another, written to rows i of
+    # a third, whose last row must stay as it was.
+    m, n = WINDOW // STRIDE, 87
+    N = m * 23 * (-(-blocks // m) + 1)
+    a, b = ids(n, (N, n)), ids(n, (N, n))
+    c = torch.full((N, n), -1, dtype=torch.int32, device=dev)
+    cases.append(dict(
+        kernel="compose", label="out= slab (census stitch)",
+        shape=f"f, g, out {N - 1}x{n} of {N}x{n}",
+        run=lambda a=a, b=b, c=c: (ops.compose(a[:-1], b[1:], out=c[:-1]),
+                                   c)[1],
+        plain=lambda a=a, b=b, c=c: torch.cat([ref.compose(a[:-1], b[1:]),
+                                               c[-1:]]),
+        library=None,
+        nbytes=4 * 3 * (N - 1) * n,
+        ops=0,
+    ))
 
     return cases + match_cases(torch, ops, ref, dev, ids, clock_mhz)
 
@@ -1153,6 +1176,7 @@ def sfa_fields_equal(a, b) -> bool:
 
 
 def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
+    from repro_torch import obs
     from repro_torch.construction import construct_sfa, construct_sfa_sequential
     from repro_torch.core.matching import match_ends_sequential
     from repro_torch.core.monoid import function_monoid
@@ -1179,8 +1203,10 @@ def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
     bank = run("compile bank", lambda: Scanner.compile(
         load_bank(), mode="sfa", sfa_state_budget=SINGLE_BUDGET,
         construction=cold()))
+    combines = obs.counter("engine.window_combines_in_place").value
     windows = run("census_windows", lambda: bank.census_windows(
         seq, WINDOW, STRIDE))
+    combines = obs.counter("engine.window_combines_in_place").value - combines
     before = ops.launches["compose"]
     streamed = run("stream", lambda: bank.stream(pieces))
     stream_composes = ops.launches["compose"] - before
@@ -1202,6 +1228,12 @@ def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
           f"{walls['stream']:.3f} s", flush=True)
     print(f"[single] kernel launches in the single-pattern path: {launches}",
           flush=True)
+    # The window scans write in place: 3 suffix and 3 prefix steps and the
+    # stitch a group at m = 8.
+    print(f"[single] census_windows: engine.window_combines_in_place "
+          f"{combines} for {len(bank.groups)} group(s)", flush=True)
+    check(combines == 7 * len(bank.groups),
+          "census_windows makes 7 in-place combines a group")
     for name in SINGLE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the single-pattern path")
@@ -1270,6 +1302,7 @@ def single_path(torch, ops, kref, seq, profile: bool = False) -> dict:
                 materialised_scan_s=t_naive, whole_mapping_s=t_whole,
                 census=windows.counts.tolist(), windows_hits=windows.hits,
                 match_ends=int(flags.sum()), stream_composes=stream_composes,
+                window_combines=combines,
                 profile_stream=(trace(torch, "single stream",
                                       lambda: bank.stream(pieces))
                                 if profile else None))

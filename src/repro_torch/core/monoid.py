@@ -12,8 +12,9 @@ reduce. The same machinery parallelizes the LM half's recurrences:
 An element is one tensor (the function monoid) or a tuple of tensors (the
 other two). The execution strategies are the sequential ``reduce`` the
 scan engine folds its chunk functions with, and the inclusive and
-exclusive ``scan``s behind ``locate``'s entry states, ``census_windows``'
-sliding windows and the recurrences.
+exclusive ``scan``s behind ``locate``'s entry states and the recurrences
+(``census_windows``' sliding windows scan in place instead:
+``engine/executors.py::_window_compositions``).
 
 The function monoid's combine and fold are the ``compose`` kernel
 (``kernels/csrc/compose.cu`` for CUDA tensors, its plain ``torch.gather``

@@ -12,8 +12,9 @@ Layout conventions (shared with ``core.multipattern.PatternBank``):
 The chunk walks go through ``kernels.ops.match_chunks`` (one table) and
 ``kernels.ops.match_bank_chunks`` (a bank) — the CUDA kernels for CUDA
 tensors — and every fold of chunk functions through the ``compose`` kernel:
-behind ``monoid.function_monoid``, or ``kernels.ops.compose_fold_rows`` for
-the SFA path's mapping rows. ``match_fn`` / ``monoid`` / ``fold_rows`` swap
+behind ``monoid.function_monoid``, ``kernels.ops.compose`` into the sliding
+windows' workspace, or ``kernels.ops.compose_fold_rows`` for the SFA path's
+mapping rows. ``match_fn`` / ``monoid`` / ``fold_rows`` swap
 in other functions of the same signature, such as the plain versions of
 ``kernels.ref``. The rest is plain PyTorch gathers, as the reference left it
 to XLA.
@@ -30,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..construction import SFA
 from ..core import monoid as M
 from ..core.dfa import DFA
@@ -39,6 +41,11 @@ from ..kernels import ops
 from ..mesh import all_gather, all_reduce, local_shard
 
 FN = M.function_monoid()
+#: ``compose`` calls that wrote into a window workspace
+#: (:func:`_window_compositions`): the stitch and each scan step.
+_WINDOW_COMBINES = obs.counter(
+    "engine.window_combines_in_place",
+    help="compose calls writing into a sliding-window workspace")
 
 
 # --------------------------------------------------------------------------
@@ -207,42 +214,122 @@ def match_bank_parallel_sfa(deltas: torch.Tensor, sfa_maps: torch.Tensor,
                                  n_chunks)[:, 0]
 
 
+def _window_compositions(block_maps: torch.Tensor, m: int
+                         ) -> torch.Tensor:
+    """Every length-``m`` window's composition, ``m >= 2``, made in a
+    tile-position-major workspace ``(m, Pg, T + 1, n)``, ``T = ceil(B / m)``:
+    (Pg, B, n) -> a (Pg, T, m, n) view of it in window order, whose
+    ``[p, t, j]`` is window ``w = t·m + j`` of pattern p (block w, then ...,
+    then block w+m-1) for ``w < B - m + 1``; the other rows are spare.
+
+    The Gil–Werman trick on the function monoid: the block axis is cut into
+    tiles of ``m`` (``X[j, p, t]`` = block ``t·m + j``, the identity past
+    the last block and in a spare tile ``T``), each tile gets a suffix scan
+    ``S[j]`` = blocks j .. m-1 and an exclusive prefix scan ``E[j]`` =
+    blocks 0 .. j-1, and window ``t·m + j`` is ``S[j, p, t]`` then
+    ``E[j, p, t+1]``. With j outermost every operand is a contiguous slab
+    of ``R = Pg·(T + 1)`` rows: each Hillis–Steele step is one ``compose``
+    over slabs ``[a, b)`` of j into a second buffer (ping-pong between three
+    buffers, the rows a step leaves unchanged carried by ``copy_`` unless
+    the buffer already holds their final values), and the stitch is one
+    ``compose`` of the flat rows ``i`` of S and ``i + 1`` of E. Composition
+    is exactly associative, so every window is bit-identical to composing
+    it on its own."""
+    Pg, B, n = block_maps.shape
+    T = -(-B // m)
+    R = Pg * (T + 1)
+    x, *pool = (block_maps.new_empty((m * R, n)) for _ in range(3))
+    ident = torch.arange(n, dtype=block_maps.dtype, device=block_maps.device)
+    x4 = x.view(m, Pg, T + 1, n)
+    full, r = divmod(B, m)
+    x4[:, :, :full].copy_(block_maps[:, :full * m].unflatten(1, (full, m))
+                          .permute(2, 0, 1, 3))
+    if r:
+        x4[:r, :, full].copy_(block_maps[:, full * m:].transpose(0, 1))
+        x4[r:, :, full].copy_(ident.expand(m - r, Pg, n))
+    x4[:, :, T].copy_(ident.expand(m, Pg, n))
+
+    def slab(buf, a, b):
+        return buf[a * R:b * R]
+
+    def compose(f, g, out):
+        _WINDOW_COMBINES.inc()
+        ops.compose(f, g, out=out)
+
+    def carry(src, dst, a, b):
+        if a < b:
+            slab(dst, a, b).copy_(slab(src, a, b))
+
+    # Suffix, step d: S'[j] = S[j] then S[j+d] for j < m - d; the buffer
+    # written holds final rows [m - 2d, m), which a later step into it
+    # need not carry again.
+    s_final: dict = {}
+    s, d = x, 1
+    while d < m:
+        dst = pool.pop()
+        carry(s, dst, m - d, s_final.get(id(dst), m))
+        compose(slab(s, 0, m - d), slab(s, d, m), slab(dst, 0, m - d))
+        s_final[id(dst)] = max(0, m - 2 * d)
+        if s is not x:
+            pool.append(s)
+        s, d = dst, 2 * d
+    # Exclusive prefix: E[0] the identity, E[1:] the inclusive scan of
+    # X[:m-1], whose first step reads X shifted one slab; step d:
+    # E'[j] = E[j-d] then E[j] for j > d, final rows [0, 2d + 1).
+    e = pool.pop()
+    slab(e, 0, 1).copy_(ident.expand(R, n))
+    slab(e, 1, 2).copy_(slab(x, 0, 1))
+    if m > 2:
+        compose(slab(x, 0, m - 2), slab(x, 1, m - 1), slab(e, 2, m))
+    e_final = {id(e): min(m, 3)}
+    pool.append(x)
+    d = 2
+    while d < m - 1:
+        dst = pool.pop()
+        carry(e, dst, e_final.get(id(dst), 0), d + 1)
+        compose(slab(e, 1, m - d), slab(e, d + 1, m), slab(dst, d + 1, m))
+        e_final[id(dst)] = min(m, 2 * d + 1)
+        pool.append(e)
+        e, d = dst, 2 * d
+    out = pool.pop()
+    compose(s[:-1], e[1:], out[:-1])
+    return out.view(m, Pg, T + 1, n).permute(1, 2, 0, 3)[:, :T]
+
+
 def sliding_window_mappings(block_maps: torch.Tensor, m: int
                             ) -> torch.Tensor:
     """All length-``m`` sliding-window compositions of consecutive block
     transition functions: (Pg, B, n) -> (Pg, B - m + 1, n), output ``w``
-    being ``block w`` then ... then ``block w+m-1``.
-
-    The Gil–Werman trick on the function monoid: tile the block axis into
-    groups of ``m``, run one *suffix* scan and one *prefix* scan per tile
-    (each block's function enters two log-depth scans), and stitch window
-    ``w = t·m + j`` as ``suffix[t, j]`` then ``prefix[t+1, j-1]`` (identity
-    when ``j = 0``). Composition is exactly associative, so the result is
-    bit-identical to composing every window on its own.
-    """
+    being ``block w`` then ... then ``block w+m-1``, bit-identical to
+    composing every window on its own (:func:`_window_compositions`, read
+    back in window order)."""
     Pg, B, n = block_maps.shape
     W = B - m + 1
     if W < 1:
         raise ValueError(f"need at least m={m} blocks, got {B}")
     if m == 1:
         return block_maps
-    T = -(-B // m)  # tiles of m blocks, the last padded with identities
-    ident = torch.arange(n, dtype=block_maps.dtype, device=block_maps.device)
-    x = torch.cat([block_maps, ident.expand(Pg, T * m - B, n)], dim=1)
-    x = x.view(Pg, T, m, n)
-    # A reverse scan folds the right end in first, so the suffix combine
-    # "block j then j+1 then ..." needs the argument-flipped monoid.
-    flipped = M.Monoid(lambda a, b: FN.combine(b, a), FN.identity, FN.name)
-    suffix = M.scan(flipped, x, axis=2, reverse=True)  # [t,j] = tm+j..tm+m-1
-    prefix = M.scan(FN, x, axis=2)                     # [t,j] = tm..tm+j
-    # The prefix shifted one block right within each tile (j = 0 ->
-    # identity) and one whole tile down: flat index w + m lands on tile t+1,
-    # offset j.
-    shifted = torch.cat([ident.expand(Pg, T, 1, n), prefix[:, :, :-1]], dim=2)
-    shifted = torch.cat([shifted, ident.expand(Pg, 1, m, n)], dim=1)
-    s_flat = suffix.reshape(Pg, T * m, n)[:, :W]
-    q_flat = shifted.reshape(Pg, (T + 1) * m, n)[:, m:m + W]
-    return FN.combine(s_flat, q_flat)
+    tiles = _window_compositions(block_maps, m)
+    return tiles.reshape(Pg, -1, n)[:, :W]
+
+
+def sliding_window_hits(block_maps: torch.Tensor, m: int,
+                        accepting: torch.Tensor, starts: torch.Tensor
+                        ) -> torch.Tensor:
+    """Accept flags of every length-``m`` window of consecutive blocks:
+    (Pg, B, n) block mappings, (Pg, n) accepting, (Pg,) starts ->
+    (Pg, B - m + 1) bool, :func:`hits_of_mappings` of
+    :func:`sliding_window_mappings` with only each pattern's start lane of
+    the windows read, in window order."""
+    Pg, B, n = block_maps.shape
+    W = B - m + 1
+    if m == 1 or W < 1:
+        return hits_of_mappings(sliding_window_mappings(block_maps, m),
+                                accepting, starts)
+    tiles = _window_compositions(block_maps, m)
+    idx = starts.to(torch.int64).view(Pg, 1, 1, 1).expand(*tiles.shape[:3], 1)
+    finals = tiles.gather(3, idx).view(Pg, -1)[:, :W]
+    return accepting.gather(1, finals.to(torch.int64))
 
 
 def hits_of_mappings(maps: torch.Tensor, accepting: torch.Tensor,

@@ -890,8 +890,10 @@ class Scanner:
         The sequence is cut into ``stride``-symbol blocks, each block's
         transition function is computed once (the chunk walks of ``scan``),
         and every window's composition comes out of one prefix and one
-        suffix scan per tile of ``window // stride`` blocks
-        (:func:`.executors.sliding_window_mappings`), all on the device.
+        suffix scan per tile of ``window // stride`` blocks, all on the
+        device (:func:`.executors.sliding_window_hits`: each scan step and
+        the stitch one ``compose`` over contiguous slabs of a
+        tile-position-major workspace, then each pattern's start lane).
         Composition is exactly associative, so ``hits`` is bit-identical to
         ``scan`` of the materialised windows
         ``seq[i*stride : i*stride + window]``.
@@ -947,8 +949,8 @@ class Scanner:
                     maps = self._group_doc_mappings(g, blocks, blocks_t,
                                                     stride)[:, :B]
                 with windows:
-                    wmaps = X.sliding_window_mappings(maps, m)    # (Pg, W, n)
-                    acc = X.hits_of_mappings(wmaps, g.accepting, g.starts)
+                    acc = X.sliding_window_hits(maps, m, g.accepting,
+                                                g.starts)         # (Pg, W)
                 with readback:
                     hits[g.indices, :] = acc.cpu().numpy()
         return ScanResult(hits=hits, ids=self.ids)

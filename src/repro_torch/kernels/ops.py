@@ -507,23 +507,48 @@ def match_bank_chunks(tables: torch.Tensor, chunks: torch.Tensor,
     return out
 
 
-def compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def compose(f: torch.Tensor, g: torch.Tensor, *,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """Function-monoid combine ("apply f, then g"): (B, n) mapping vectors
     of state ids < n -> (B, n), ``out[b, q] = g[b, f[b, q]]`` — the
-    ``m = 1`` case of :func:`compose_fold`."""
+    ``m = 1`` case of :func:`compose_fold`.
+
+    ``out``, where given, is a contiguous (B, n) int32 tensor on f's device
+    that shares no byte with f or g (a slab of a larger buffer, say); the
+    result is written there and ``out`` returned."""
     _CALLS["compose"].inc()
-    dev = _check("compose", ("f", "g"), f, g)
+    if out is None:
+        dev = _check("compose", ("f", "g"), f, g)
+    else:
+        dev = _check("compose", ("f", "g", "out"), f, g, out)
     if f.dim() != 2 or f.shape != g.shape:
         raise ValueError(f"compose: f and g must both be (B, n), got "
                          f"{tuple(f.shape)} and {tuple(g.shape)}")
+    if out is not None:
+        if out.shape != f.shape:
+            raise ValueError(f"compose: out must be {tuple(f.shape)}, got "
+                             f"{tuple(out.shape)}")
+        if _overlaps(out, f) or _overlaps(out, g):
+            raise ValueError("compose: out overlaps f or g")
     if dev < 0:
-        return ref.compose(f, g)
+        res = ref.compose(f, g)
+        return res if out is None else out.copy_(res)
     B, n = f.shape
-    out = torch.empty_like(f)
+    if out is None:
+        out = torch.empty_like(f)
     if B and n:
         _launch("compose_launch", dev, f.data_ptr(), g.data_ptr(),
                 out.data_ptr(), B, n, 1)
     return out
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share a byte."""
+    if not (a.numel() and b.numel()):
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
 def compose_fold(f: torch.Tensor | None, gs: torch.Tensor) -> torch.Tensor:

@@ -452,6 +452,41 @@ def test_one_sequence_paths_walk_no_ragged_tail(mode, monkeypatch):
     assert np.array_equal(got.accepted, want.accepted)
 
 
+@pytest.mark.parametrize("bank", ["sfa", "default_512"])
+def test_census_windows_in_place_equal_materialised_windows(bank, scanners):
+    """``census_windows`` at window = 8 strides over a sequence whose last
+    tile of 8 blocks is partial (66 blocks): the scan of the materialised
+    windows, on SFA groups alone and on the bundled bank's default plan
+    (budget 512: SFA and enumeration groups); each group makes 7 combines
+    into the window workspace (3 suffix steps, 3 prefix steps, the stitch),
+    all of the ``compose`` calls, and folds its blocks once (the SFA
+    groups' rows fold; an enumeration group's one ``compose_fold``)."""
+    if bank == "sfa":
+        port = _ladder_scanner("sfa")
+        seq = np.random.default_rng(42).integers(
+            0, LADDER_K, 400).astype(np.int32)
+    else:
+        port = scanners[0]
+        seq = synthetic_protein(400, seed=42)
+    window, stride = 48, 6
+    n_win = (len(seq) - window) // stride + 1
+    assert (n_win + 7) % 8
+    got, (combines, composes, folds, rows_folds) = _counted(
+        lambda: port.census_windows(seq, window, stride),
+        "engine.window_combines_in_place", "kernels.compose.calls",
+        "kernels.compose_fold.calls", "kernels.compose_fold_rows.calls")
+    naive = port.scan([seq[i * stride: i * stride + window]
+                       for i in range(n_win)])
+    assert got.hits.shape == (port.n_patterns, n_win)
+    assert np.array_equal(got.hits, naive.hits)
+    modes = [g.mode for g in port.groups]
+    assert combines == composes == 7 * len(modes)
+    assert (folds, rows_folds) == (modes.count("enumeration"),
+                                   modes.count("sfa"))
+    if bank == "sfa":
+        assert folds == 0
+
+
 # --------------------------------------------------------------------------
 # Encoding: a request's strings joined and looked up in the scanner's symbol
 # table at once, over their code points

@@ -845,6 +845,8 @@ def test_instrumentation_matches_reference_on_bundled_bank():
     assert mine.pop("engine.scan_symbols") == sum(map(len, docs))
     assert mine.pop("engine.scan_pad_symbols") == 0   # 96 = 24 x n_chunks
     assert mine.pop("engine.encoded_symbols") == sum(map(len, docs))
+    # Nor does the census's window-workspace counter; a scan moves it not.
+    assert mine.pop("engine.window_combines_in_place") == 0
     assert mine == theirs
     assert my_spans == their_spans | NEW_SPANS
     assert my_totalled == my_spans | LOOP_SPANS

@@ -55,6 +55,7 @@ from repro_torch.engine import (  # noqa: E402
     Scanner,
 )
 from repro_torch.engine import executors as X  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 CPU = "cpu"
 PATTERNS = ("PS00001", "PS00006", "SYN00002")   # 6, 9 and 17 DFA states
@@ -216,10 +217,20 @@ def test_single_and_bank_executors_match_reference(seed):
     assert np.array_equal(got.numpy(), np.asarray(jwant))
 
 
-@pytest.mark.parametrize("B,m", [(1, 1), (9, 3), (16, 4), (11, 8)])
-def test_sliding_window_mappings_match_reference(B, m):
+# (B, m, Pg): the first four as before; then one tile (B = m), whole tiles
+# (B = 3m) and a last tile of one block (B = 3m + 1) for m in 2, 3, 8, 16.
+WINDOW_CASES = (
+    [pytest.param(B, m, 2, id=f"{B}-{m}")
+     for B, m in [(1, 1), (9, 3), (16, 4), (11, 8)]]
+    + [pytest.param(B, m, Pg, id=f"B{B}-m{m}-Pg{Pg}")
+       for m in (2, 3, 8, 16) for B in (m, 3 * m, 3 * m + 1)
+       for Pg in (1, 3)])
+
+
+@pytest.mark.parametrize("B,m,Pg", WINDOW_CASES)
+def test_sliding_window_mappings_match_reference(B, m, Pg):
     rng = np.random.default_rng(B * m)
-    maps = rng.integers(0, 7, size=(2, B, 7)).astype(np.int32)
+    maps = rng.integers(0, 7, size=(Pg, B, 7)).astype(np.int32)
     got = X.sliding_window_mappings(_t(maps), m)
     want = JX.sliding_window_mappings(jnp.asarray(maps), m)
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -228,6 +239,47 @@ def test_sliding_window_mappings_match_reference(B, m):
     for w in range(B - m + 1):
         one = monoid.reduce(FN, _t(maps[:, w:w + m]), axis=1)
         assert torch.equal(got[:, w], one)
+    # the hits read off the workspace's start lanes
+    accepting = _t(rng.random((Pg, 7)) < 0.5)
+    starts = _t(rng.integers(0, 7, Pg).astype(np.int32))
+    assert torch.equal(X.sliding_window_hits(_t(maps), m, accepting, starts),
+                       X.hits_of_mappings(got, accepting, starts))
+
+
+@pytest.mark.parametrize("B,n", [(5, 7), (64, 87)])
+@pytest.mark.parametrize("operands", ["fresh", "slabs of the buffer"])
+def test_compose_into_a_slab_of_a_larger_buffer(B, n, operands):
+    """``ops.compose(f, g, out=slab)`` writes the fresh result into the slab
+    and nothing else of its buffer, also where f and g are other slabs of
+    that buffer."""
+    rng = np.random.default_rng(B + n)
+    buf = _t(rng.integers(0, n, size=(4 * B + 3, n)).astype(np.int32))
+    before = buf.clone()
+    if operands == "fresh":
+        f, g = (_t(rng.integers(0, n, size=(B, n)).astype(np.int32))
+                for _ in range(2))
+    else:
+        f, g = buf[:B], buf[3 * B + 3:]
+    want = ops.compose(f, g)
+    lo, hi = B + 1, 2 * B + 1
+    got = ops.compose(f, g, out=buf[lo:hi])
+    assert got.data_ptr() == buf[lo:hi].data_ptr()
+    assert torch.equal(buf[lo:hi], want)
+    assert torch.equal(buf[:lo], before[:lo])
+    assert torch.equal(buf[hi:], before[hi:])
+
+
+@pytest.mark.parametrize("case", ["overlaps f", "overlaps g",
+                                  "non-contiguous", "shape", "dtype"])
+def test_compose_refuses_a_bad_out(case):
+    buf = torch.arange(4).repeat(12, 1).to(torch.int32)      # (12, 4)
+    f, g = buf[0:4], buf[6:10]
+    out = {"overlaps f": buf[1:5], "overlaps g": buf[8:12],
+           "non-contiguous": torch.zeros(4, 8, dtype=torch.int32)[:, ::2],
+           "shape": torch.zeros(3, 4, dtype=torch.int32),
+           "dtype": torch.zeros(4, 4, dtype=torch.int64)}[case]
+    with pytest.raises(TypeError if case == "dtype" else ValueError):
+        ops.compose(f, g, out=out)
 
 
 # --------------------------------------------------------------------------
